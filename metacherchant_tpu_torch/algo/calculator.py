@@ -1,8 +1,9 @@
 """Per-gene environment calculator: BFS -> contraction -> writers.
 
 Equivalent of src/algo/OneSequenceCalculator.java run():98-114 + createPicture
-():326-339 for the exact (k<=31) regime; carried over from
-metacherchant_tpu/algo/calculator.py. The hashed regime is not ported yet.
+():326-339 for the exact (k<=31) regime; the hashed regime routes through
+algo.environment_hashed (string states). Carried over from
+metacherchant_tpu/algo/calculator.py.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from .environment import build_environment, Environment
 from .contraction import (build_node_graph, do_merge, gene_kmer_checker,
                           refuse_device_contraction)
 from ..io.writers import (
-    write_graph_txt_codes, write_seqs_fasta, write_gfa, write_tsvs)
+    write_graph_txt, write_graph_txt_codes, write_seqs_fasta, write_gfa,
+    write_tsvs)
 
 logger = logging.getLogger("metacherchant")
 
@@ -31,8 +33,8 @@ def run_one_sequence(sequences: list[str], k: int, kmap: KmerMap,
                      both_directions: bool, chunk_length: int,
                      max_radius: int | None, max_kmers: int | None,
                      trim: bool, merged: bool,
-                     hic_sequences: list[str] | None = None
-                     ) -> Environment | None:
+                     hic_sequences: list[str] | None = None,
+                     hasher: str | None = None) -> Environment | None:
     """Returns the Environment, or None when no gene k-mer was found
     (fail+halt, OneSequenceCalculator.java:193-196, run():106-109)."""
     if not merged:
@@ -41,17 +43,26 @@ def run_one_sequence(sequences: list[str], k: int, kmap: KmerMap,
     else:
         logger.info("Finding single environment for %d sequences", len(sequences))
 
-    env = build_environment(sequences, k, kmap, min_occ, both_directions,
-                            max_radius, max_kmers, trim, hic_sequences)
+    if hasher is None:
+        env = build_environment(sequences, k, kmap, min_occ, both_directions,
+                                max_radius, max_kmers, trim, hic_sequences)
+    else:
+        from .environment_hashed import build_environment_hashed
+        env = build_environment_hashed(sequences, k, kmap, min_occ, hasher,
+                                       both_directions, max_radius, max_kmers,
+                                       trim, hic_sequences)
     if env.fail:
         logger.info("Could not find any k-mers of the target gene in the input, halting.")
         return None
     logger.info("Extending endings by %d kmers", env.extend_count)
 
-    # vectorized writer straight from oriented codes (byte-identical to
-    # write_graph_txt(env.as_dict()))
-    write_graph_txt_codes(os.path.join(output_prefix, "graph.txt"),
-                          env.codes, env.counts, k)
+    graph_txt = os.path.join(output_prefix, "graph.txt")
+    if hasher is None:
+        # exact regime: vectorized writer straight from oriented codes
+        # (byte-identical to write_graph_txt(env.as_dict()))
+        write_graph_txt_codes(graph_txt, env.codes, env.counts, k)
+    else:
+        write_graph_txt(graph_txt, env.as_dict())
     create_picture(env.as_dict(), sequences, k, output_prefix, chunk_length)
     return env
 

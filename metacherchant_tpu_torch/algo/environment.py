@@ -197,7 +197,7 @@ def trim_paths(visited: np.ndarray, last_kmers: np.ndarray, k: int,
     return reached
 
 
-def _refuse_device_bfs() -> None:
+def refuse_device_bfs() -> None:
     """The JAX package's device BFS engines (ops/bfs_dense.py,
     ops/bfs_device.py) are not ported: a request for them is an error, not
     a silent host run."""
@@ -255,7 +255,7 @@ def build_environment(sequences: list[str], k: int, kmap: KmerMap,
     sequences: gene sequences (1 for single mode, N for merged mode);
     hic_sequences: extra seed sequences in merged mode (runBfs:181-191).
     """
-    _refuse_device_bfs()
+    refuse_device_bfs()
     seeds = seed_codes_of_sequences(
         list(sequences) + list(hic_sequences or []), k, kmap, min_occ)
     dirs = [0] if both_directions else [-1, 1]

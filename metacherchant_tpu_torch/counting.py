@@ -1,7 +1,8 @@
 """K-mer counting: stream reads -> device extraction -> device counter.
 
-Counterpart of metacherchant_tpu/counting.py for the `sort` engine, exact
-regime (k <= 31): reads are packed on the host into fixed-shape (B, L) int8
+Counterpart of metacherchant_tpu/counting.py for the `sort` engine, in the
+exact (k <= 31) and hashed (k > 31 or --forcehash, src/io/LargeKIOUtils.java
+:40-88) regimes: reads are packed on the host into fixed-shape (B, L) int8
 code batches (native parser + vectorized chunking, or the Python readers),
 moved to the device, and counted by ops/sortcount.StreamCounter. Long
 fragments are chunked with k-1 overlap so every window is counted once.
@@ -16,10 +17,10 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from .dna import canonical_code, kmer_to_code, CHAR_TO_CODE
+from .dna import canonical_code, kmer_to_code, encode, CHAR_TO_CODE
 from .io.readers import iter_reads_split
 from .kmer_map import KmerMap
-from .ops.kmers import hash_str, pack_reads
+from .ops.kmers import hash_codes_np, pack_reads
 from .ops.sortcount import StreamCounter
 
 logger = logging.getLogger("metacherchant")
@@ -129,13 +130,12 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
                        max_len: int = DEFAULT_LEN, table_log2: int = 20,
                        engine: str | None = None, *,
                        device: torch.device) -> KmerMap:
-    """Count canonical k-mers of all reads into a KmerMap on `device`.
+    """Count canonical k-mers of all reads into a KmerMap on `device`;
+    hasher None keys exactly, 'poly' or 'fnv1a' by hash.
 
     engine: 'sort' (the default and, so far, the only ported engine).
     Ingestion uses the native (C++) parser + vectorized packing per file when
     available, else the Python per-fragment readers."""
-    if hasher is not None:
-        raise NotImplementedError("hashed regime not yet ported")
     engine = engine or os.environ.get("MC_COUNT_ENGINE", "sort")
     if engine in _UNPORTED_ENGINES:
         raise NotImplementedError(
@@ -154,7 +154,7 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
                             store_cap=store_cap)
 
     def sink(packed: np.ndarray) -> None:
-        counter.add_codes(torch.from_numpy(packed).to(device), k)
+        counter.add_codes(torch.from_numpy(packed).to(device), k, hasher)
 
     from .progress import Progress
     files = [str(f) for f in files]
@@ -197,19 +197,22 @@ def count_kmers_host(files: Iterable[str], k: int, hasher: str | None = None,
 
     Mirrors ShortKmer.kmersOf + addAndBound exactly (src/io/IOUtils.java:200-214).
     """
-    if hasher is not None:
-        raise NotImplementedError("hashed regime not yet ported")
     counts: dict[int, int] = {}
     for f in files:
         for frag in iter_reads_split(str(f)):
             if len(frag) < max(min_len, k):
                 continue
-            _count_codes_into(counts, frag, k)
+            _count_codes_into(counts, frag, k, hasher)
     return KmerMap.from_dict(counts)
 
 
-def _count_codes_into(counts: dict[int, int], codes: np.ndarray,
-                      k: int) -> None:
+def _count_codes_into(counts: dict[int, int], codes: np.ndarray, k: int,
+                      hasher: str | None) -> None:
+    if hasher is not None:
+        wins = np.lib.stride_tricks.sliding_window_view(codes, k)
+        for key in hash_codes_np(wins, hasher).tolist():
+            counts[key] = counts.get(key, 0) + 1
+        return
     fw = 0
     rc = 0
     mask = (1 << (2 * k)) - 1
@@ -229,8 +232,8 @@ def seed_keys_of_sequence(seq: str, k: int, hasher: str | None) -> np.ndarray:
     if n <= 0:
         return np.empty(0, np.int64)
     if hasher is not None:
-        return np.fromiter(
-            (hash_str(seq[i:i + k], hasher) for i in range(n)), np.int64, n)
+        return hash_codes_np(
+            np.lib.stride_tricks.sliding_window_view(encode(seq), k), hasher)
     out = np.empty(n, np.int64)
     code = kmer_to_code(seq[:k])
     out[0] = canonical_code(code, k)

@@ -35,6 +35,12 @@ for _c in "Nn.":
 _COMPLEMENT_TRANS = bytes.maketrans(b"ACGTacgt", b"TGCATGCA")
 
 
+def encode(seq: str) -> np.ndarray:
+    """String -> int8 code array (A=0,G=1,C=2,T=3; N -> -1, invalid -> -2)."""
+    raw = np.frombuffer(seq.encode("ascii"), dtype=np.uint8)
+    return CHAR_TO_CODE[raw]
+
+
 def reverse_complement(seq: str) -> str:
     """Reverse complement of an ACGT string (itmo:dna/DnaTools.java:139-145)."""
     return seq.translate(_COMPLEMENT_TRANS)[::-1]

@@ -14,8 +14,7 @@ Behavior mirrors the reference ingestion stack:
   instead resolve deterministically to the first alternative and document the
   divergence (goldens are ACGT-only).
 
-Carried over from metacherchant_tpu/io/readers.py (the paired-read sources
-of the classifier tools are not part of the port yet).
+Carried over from metacherchant_tpu/io/readers.py.
 """
 from __future__ import annotations
 
@@ -24,7 +23,7 @@ import gzip
 import os
 import struct
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Iterable, Iterator
 
 import numpy as np
 
@@ -290,3 +289,37 @@ def read_rich_fasta(path: str) -> list[FastaRecord]:
     for c, d in zip(comments, dnas):
         records.append(FastaRecord(c, d))
     return records
+
+
+def pair_sources(iter1: Iterable, iter2: Iterable):
+    """Zip paired read sources; when one side is exhausted the other continues
+    with None mates (itmo:io/sources/PairSource.java:22-57)."""
+    i1, i2 = iter(iter1), iter(iter2)
+    while True:
+        a = next(i1, None)
+        b = next(i2, None)
+        if a is None and b is None:
+            return
+        yield a, b
+
+
+def iter_dnaq_pair_batches(files: list[str], batch: int):
+    """Stream paired reads as equal-length DnaQ batch-pairs, O(batch) memory.
+
+    PairSource semantics (itmo:io/sources/PairSource.java:22-57): mates are
+    zipped; when the shorter source is exhausted the other continues against
+    empty mates; with a single file every read pairs with an empty mate.
+    Yields (list1, list2) of DnaQ with len <= batch.
+    """
+    empty = DnaQ(np.empty(0, np.int8), np.empty(0, np.int16))
+    it2 = iter_dnaq(files[1]) if len(files) >= 2 else iter(())
+    b1: list[DnaQ] = []
+    b2: list[DnaQ] = []
+    for a, b in pair_sources(iter_dnaq(files[0]), it2):
+        b1.append(a if a is not None else empty)
+        b2.append(b if b is not None else empty)
+        if len(b1) == batch:
+            yield b1, b2
+            b1, b2 = [], []
+    if b1:
+        yield b1, b2

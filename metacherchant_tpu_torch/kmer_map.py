@@ -2,10 +2,11 @@
 
 This is the host-facing view of the counted de Bruijn graph, carried over
 from metacherchant_tpu/kmer_map.py: counting (ops/sortcount.py) freezes into
-sorted numpy (keys, counts) arrays, and BFS seeding and the writers query
-them on the host. Both packages hold the map as numpy, so a JAX KmerMap's
-(keys, counts) build an equal port KmerMap. The device lookup half is not
-ported yet.
+sorted numpy (keys, counts) arrays, and BFS seeding, the classifier and the
+writers query them on the host. Both packages hold the map as numpy, so a
+JAX KmerMap's (keys, counts) build an equal port KmerMap. The device half is
+a copy of the sorted arrays on a torch device, probed by torch.searchsorted
+(lookup_device; the classifier's MC_DEVICE_CLASSIFY route).
 
 Count semantics per the reference map (itmo:structures/map/Long2ShortHashMap.java):
 get() of an absent key -> -1 (:159-175), counts saturate at 32767
@@ -13,7 +14,10 @@ get() of an absent key -> -1 (:159-175), counts saturate at 32767
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
+import torch
 
 SATURATION = 32767
 
@@ -33,6 +37,8 @@ class KmerMap:
         self.keys = np.ascontiguousarray(keys, dtype=np.int64)
         self.counts = np.ascontiguousarray(
             np.minimum(counts, SATURATION), dtype=np.int32)
+        self._device: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._device_lock = threading.Lock()
 
     @staticmethod
     def from_pairs(keys: np.ndarray, counts: np.ndarray) -> "KmerMap":
@@ -145,3 +151,36 @@ class KmerMap:
             self._oriented_k = k
             cached = d
         return cached
+
+    # ---- device side ----
+    def device_arrays(self, device: torch.device
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The sorted (keys int64, counts int32) on `device`, copied once per
+        device and cached (under a lock: classifier threads share a map)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        with self._device_lock:
+            arrays = self._device.get(device)
+            if arrays is None:
+                arrays = (torch.from_numpy(self.keys).to(device),
+                          torch.from_numpy(self.counts).to(device))
+                self._device[device] = arrays
+        return arrays
+
+    def lookup_device(self, query: torch.Tensor) -> torch.Tensor:
+        """Counts of int64 `query` keys on the query's device; absent -> -1."""
+        keys, counts = self.device_arrays(query.device)
+        return _lookup_sorted(keys, counts, query)
+
+
+def _lookup_sorted(keys: torch.Tensor, counts: torch.Tensor,
+                   query: torch.Tensor) -> torch.Tensor:
+    """int32 count of each query in the sorted `keys` (left-side
+    searchsorted, as jnp.searchsorted), -1 where absent or the map is empty."""
+    if keys.numel() == 0:
+        return torch.full(query.shape, -1, dtype=torch.int32,
+                          device=query.device)
+    pos = torch.searchsorted(keys, query).clamp_max_(keys.numel() - 1)
+    hit = keys[pos] == query
+    return torch.where(hit, counts[pos], -1).to(torch.int32)

@@ -1,8 +1,9 @@
 """Native (C++) host engines of the main path, loaded with ctypes.
 
 - fastio: FASTA/FASTQ(.gz) parsing + 2-bit packing with the exact N-split
-  semantics of the Python readers (io/readers.py);
-- bfs: the FIFO environment BFS, exact regime.
+  semantics of the Python readers (io/readers.py), and the whole-read FASTQ
+  parse of the classifier (no N-splitting);
+- bfs: the FIFO environment BFS, exact and hashed regimes.
 
 The sources are the JAX package's (metacherchant_tpu/native/fastio.cpp and
 bfs.cpp). They are compiled here by file path with g++ into the port's own
@@ -68,6 +69,14 @@ def _load_fastio():
         ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
         ctypes.c_char_p, ctypes.c_int]
+    lib.fastio_parse_reads.restype = ctypes.c_int
+    lib.fastio_parse_reads.argtypes = [
+        ctypes.c_char_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int8)),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int16)),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_char_p, ctypes.c_int]
     lib.fastio_free.restype = None
     lib.fastio_free.argtypes = [ctypes.c_void_p]
     return lib
@@ -81,12 +90,19 @@ def _load_bfs():
     lib = ctypes.CDLL(str(path))
     i64p = ctypes.POINTER(ctypes.c_int64)
     i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
     lib.mc_bfs_exact.restype = ctypes.c_int
     lib.mc_bfs_exact.argtypes = [
         i64p, i32p, ctypes.c_int64, i64p, ctypes.c_int64,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
         ctypes.POINTER(i64p), i64p, ctypes.POINTER(i64p), i64p]
+    lib.mc_bfs_hashed.restype = ctypes.c_int
+    lib.mc_bfs_hashed.argtypes = [
+        i64p, i32p, ctypes.c_int64, u8p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(u8p), i64p, ctypes.POINTER(u8p), i64p]
     lib.mc_bfs_free.restype = None
     lib.mc_bfs_free.argtypes = [ctypes.c_void_p]
     return lib
@@ -151,6 +167,40 @@ def parse_fragments(path: str, fmt: str, qoffset: int = 33
     return codes, offs
 
 
+def parse_reads(path: str, qoffset: int = 33
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Whole-read FASTQ parse, NO N-splitting (classifier semantics,
+    io/readers.py::iter_dnaq): returns (codes int8 (total,), phred int16
+    (total,), offsets int64 (n_reads+1,)); read i is
+    codes[offsets[i]:offsets[i+1]]. Raises NativeIOError on failure."""
+    lib = _fastio()
+    if lib is None:
+        raise NativeIOError("native fastio unavailable")
+    codes_p = ctypes.POINTER(ctypes.c_int8)()
+    phred_p = ctypes.POINTER(ctypes.c_int16)()
+    offs_p = ctypes.POINTER(ctypes.c_int64)()
+    n_reads = ctypes.c_int64()
+    total = ctypes.c_int64()
+    errbuf = ctypes.create_string_buffer(512)
+    rc = lib.fastio_parse_reads(str(path).encode(), qoffset,
+                                ctypes.byref(codes_p), ctypes.byref(phred_p),
+                                ctypes.byref(offs_p), ctypes.byref(n_reads),
+                                ctypes.byref(total), errbuf, len(errbuf))
+    if rc != 0:
+        raise NativeIOError(errbuf.value.decode(errors="replace"))
+    try:
+        codes = np.ctypeslib.as_array(
+            codes_p, shape=(max(total.value, 1),))[: total.value].copy()
+        phred = np.ctypeslib.as_array(
+            phred_p, shape=(max(total.value, 1),))[: total.value].copy()
+        offs = np.ctypeslib.as_array(offs_p, shape=(n_reads.value + 1,)).copy()
+    finally:
+        lib.fastio_free(codes_p)
+        lib.fastio_free(phred_p)
+        lib.fastio_free(offs_p)
+    return codes, phred, offs
+
+
 def bfs_exact(map_keys: np.ndarray, map_counts: np.ndarray,
               seeds: np.ndarray, k: int, min_occ: int, direction: int,
               max_radius: int | None, max_kmers: int | None,
@@ -182,6 +232,46 @@ def bfs_exact(map_keys: np.ndarray, map_counts: np.ndarray,
         vis = vis[: nvis.value].copy()
         last = np.ctypeslib.as_array(last_p, shape=(max(nlast.value, 1),))
         last = last[: nlast.value].copy()
+    finally:
+        lib.mc_bfs_free(vis_p)
+        lib.mc_bfs_free(last_p)
+    return vis, last
+
+
+def bfs_hashed(map_keys: np.ndarray, map_counts: np.ndarray,
+               seeds: np.ndarray, k: int, min_occ: int, direction: int,
+               max_radius: int | None, max_kmers: int | None, hasher: str,
+               collect_last: bool) -> tuple[np.ndarray, np.ndarray]:
+    """Native FIFO BFS, hashed regime. seeds: (N, k) uint8 oriented rows.
+    Returns ((nvis, k), (nlast, k)) uint8 state rows (unordered)."""
+    lib = _bfs()
+    if lib is None:
+        raise NativeIOError("native bfs unavailable")
+    map_keys = np.ascontiguousarray(map_keys, np.int64)
+    map_counts = np.ascontiguousarray(map_counts, np.int32)
+    seeds = np.ascontiguousarray(seeds, np.uint8)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    vis_p, last_p = u8p(), u8p()
+    nvis, nlast = ctypes.c_int64(), ctypes.c_int64()
+    rc = lib.mc_bfs_hashed(
+        map_keys.ctypes.data_as(i64p),
+        map_counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        map_keys.size, seeds.ctypes.data_as(u8p), seeds.shape[0],
+        k, min_occ, direction,
+        -1 if max_radius is None else int(max_radius),
+        -1 if max_kmers is None else int(max_kmers),
+        {"poly": 0, "fnv1a": 1}[hasher],
+        1 if collect_last else 0,
+        ctypes.byref(vis_p), ctypes.byref(nvis),
+        ctypes.byref(last_p), ctypes.byref(nlast))
+    if rc != 0:
+        raise NativeIOError(f"mc_bfs_hashed rc={rc}")
+    try:
+        vis = np.ctypeslib.as_array(vis_p, shape=(max(nvis.value * k, 1),))
+        vis = vis[: nvis.value * k].copy().reshape(nvis.value, k)
+        last = np.ctypeslib.as_array(last_p, shape=(max(nlast.value * k, 1),))
+        last = last[: nlast.value * k].copy().reshape(nlast.value, k)
     finally:
         lib.mc_bfs_free(vis_p)
         lib.mc_bfs_free(last_p)

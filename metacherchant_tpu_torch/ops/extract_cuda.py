@@ -9,7 +9,8 @@ ctypes on the current CUDA stream.
 extract_append is the one entry point. On a CPU tensor it runs the plain
 torch version beside it (extract_append_plain); on a CUDA tensor it launches
 the kernel or raises. LAUNCHES counts the kernel's launches, so that a run can
-show its main path went through the kernel.
+show its main path went through the kernel; it is raised under a lock, since
+the classifier launches from a thread pool and the launch releases the GIL.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import functools
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -27,6 +29,7 @@ from .kmers import exact_canonical_kmers
 
 #: kernel launches since the process started (or since a caller reset it)
 LAUNCHES = 0
+_launches_lock = threading.Lock()
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "extract_kmers.cu"
 _LIB = BUILD_DIR / "libextract_kmers.so"
@@ -124,4 +127,5 @@ def extract_append(codes: torch.Tensor, k: int, out: torch.Tensor) -> None:
     if err != 0:
         raise RuntimeError(f"extract_append kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES += 1
+    with _launches_lock:
+        LAUNCHES += 1

@@ -1,26 +1,46 @@
 """Rolling canonical k-mer extraction over batched reads, in torch.
 
-Counterpart of metacherchant_tpu/ops/kmers.py for the exact regime
-(k <= 31): the canonical key of a window is min(fw, rc) of its 2-bit packed
-forward and reverse-complement codes (itmo:utils/KmerUtils.java:59-61; the
-rolling update is itmo:dna/kmers/ShortKmer.java:68-71).
+Counterpart of metacherchant_tpu/ops/kmers.py. Keying regimes
+(src/tools/EnvironmentFinderMain.java:127-154):
+
+- exact (k <= 31): canonical key = min(fw, rc) of the 2-bit packed forward
+  and reverse-complement codes (itmo:utils/KmerUtils.java:59-61; the rolling
+  update is itmo:dna/kmers/ShortKmer.java:68-71);
+- poly (k > 31 or --forcehash): base-5 polynomial with seed 1; rc uses
+  3^code in forward order of the rc string (src/utils/PolynomialHash.java:7-28);
+- fnv1a: FNV-1a with offset basis 14695981039346656037 and prime
+  1099511628211 (src/utils/FNV1AHash.java:8-42).
+
+Hashed keys are the signed min(fw, rc) of Java longs. torch has no uint64
+shift, compare or minimum on the CPU, so the hashed code is int64 only: the
+constants are wrapped into int64 (_i64) and the sums and products wrap mod
+2^64 as two's-complement int64 does.
 
 Input layout: (B, L) integer code matrix, entries 0..3, padding and N = -1.
 Column j carries the key of window [j-k+1, j] once j >= k-1 and the trailing
 run of valid codes is >= k; every other position carries SENTINEL.
 
 exact_canonical_kmers is the plain version of the CUDA extraction kernel
-(ops/extract_cuda.py) and runs on any device. The hashed regime (k > 31 or
---forcehash) is not ported yet.
+(ops/extract_cuda.py) and runs on any device; hash_canonical_kmers is plain
+torch on any device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+MASK64 = (1 << 64) - 1
 SENTINEL = int(np.iinfo(np.int64).max)
 
-_HASHED = "hashed regime not yet ported"
+FNV_OFFSET_BASIS = 14695981039346656037
+FNV_PRIME = 1099511628211
+POLY_BASE = 5
+
+
+def _i64(x: int) -> int:
+    """Python int (mod 2^64) -> the int64 value of the same bits."""
+    x &= MASK64
+    return x - (1 << 64) if x >= 1 << 63 else x
 
 
 def _valid_window_mask(codes: torch.Tensor, k: int) -> torch.Tensor:
@@ -58,6 +78,77 @@ def exact_canonical_kmers(codes: torch.Tensor, k: int
     return keys.masked_fill_(~ok, SENTINEL), ok
 
 
+def _powers(L: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(5^m, 5^-m) mod 2^64 for m = 0..L, as wrapped int64 tensors."""
+    inv5 = pow(POLY_BASE, -1, 1 << 64)
+    pow5 = np.empty(L + 1, np.uint64)
+    invp = np.empty(L + 1, np.uint64)
+    p = q = 1
+    for m in range(L + 1):
+        pow5[m], invp[m] = p, q
+        p = (p * POLY_BASE) & MASK64
+        q = (q * inv5) & MASK64
+    return (torch.from_numpy(pow5.view(np.int64)).to(device),
+            torch.from_numpy(invp.view(np.int64)).to(device))
+
+
+def _poly_window_keys(cpad: torch.Tensor, k: int) -> torch.Tensor:
+    """Polynomial canonical key of the window starting at each column, in
+    closed form (the JAX package's _poly_windowed_hash). With seed 1 and
+    arithmetic mod 2^64 (src/utils/PolynomialHash.java:19-28):
+        fw(i) = 5^k + sum_t code[i+t] * 5^(k-1-t)
+        rc(i) = 5^k + sum_u (3^code[i+u]) * 5^u
+    5 is odd, hence invertible mod 2^64, so with P(j) = sum_{m<j}
+    code[m]*inv5^m and Q(j) = sum_{m<j} (3^code[m])*5^m:
+        fw(i) = 5^k + 5^(i+k-1) * (P(i+k) - P(i))
+        rc(i) = 5^k + inv5^i    * (Q(i+k) - Q(i))
+    Columns whose window runs past the row are garbage; callers mask them."""
+    B, L = cpad.shape
+    pow5, invp = _powers(L, cpad.device)
+    zero = cpad.new_zeros((B, 1))
+    P = torch.cat([zero, torch.cumsum(cpad * invp[:L], dim=1)], dim=1)
+    Q = torch.cat([zero, torch.cumsum((cpad ^ 3) * pow5[:L], dim=1)], dim=1)
+    p5k = _i64(pow(POLY_BASE, k, 1 << 64))
+    i = torch.arange(L, device=cpad.device)
+    i_end = (i + k).clamp_max(L)
+    fw = p5k + pow5[(i + k - 1).clamp_max(L)] * (P[:, i_end] - P[:, i])
+    rc = p5k + invp[i] * (Q[:, i_end] - Q[:, i])
+    return torch.minimum(fw, rc)
+
+
+def _fnv1a_window_keys(cpad: torch.Tensor, k: int) -> torch.Tensor:
+    """FNV-1a canonical key of the window starting at each column: k
+    xor-multiply steps, fw over code[i+t] and rc over 3^code[i+k-1-t]
+    (src/utils/FNV1AHash.java:33-42). FNV-1a has no sliding form. Columns
+    whose window runs past the row are garbage; callers mask them."""
+    B, L = cpad.shape
+    ext = torch.cat([cpad, cpad.new_zeros((B, k - 1))], dim=1)
+    prime = FNV_PRIME
+    fw = torch.full((B, L), _i64(FNV_OFFSET_BASIS), dtype=torch.int64,
+                    device=cpad.device)
+    rc = fw.clone()
+    for t in range(k):
+        fw = (fw ^ ext[:, t:t + L]) * prime
+        rc = (rc ^ (ext[:, k - 1 - t:k - 1 - t + L] ^ 3)) * prime
+    return torch.minimum(fw, rc)
+
+
+def hash_canonical_kmers(codes: torch.Tensor, k: int, hash_name: str
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hashed-regime keys for k of any size, hash_name in {'poly', 'fnv1a'}:
+    (B, L) codes -> ((B, L) int64 keys at window ends, (B, L) validity)."""
+    if hash_name not in ("poly", "fnv1a"):
+        raise ValueError(f"unknown hash {hash_name}")
+    if k < 1:
+        raise ValueError(f"k must be positive; got {k}")
+    cpad = codes.to(torch.int64).clamp_min(0)
+    window = _poly_window_keys if hash_name == "poly" else _fnv1a_window_keys
+    keys_start = window(cpad, k)
+    ok = _valid_window_mask(codes, k)
+    keys = torch.roll(keys_start, k - 1, dims=1)
+    return keys.masked_fill_(~ok, SENTINEL), ok
+
+
 # ---------------------------------------------------------------------------
 # Host (numpy/python) helpers -- BFS seeding, writers and oracles
 # ---------------------------------------------------------------------------
@@ -66,17 +157,55 @@ def _signed(x: int) -> int:
     return x - (1 << 64) if x >= (1 << 63) else x
 
 
+def hash_codes_np(codes: np.ndarray, hasher: str) -> np.ndarray:
+    """Canonical hash of (N, k) nucleotide-code rows: signed min(fw, rc) of
+    the Java longs, via uint64 wraparound (fused fw/rc loops,
+    src/utils/PolynomialHash.java:19-28, src/utils/FNV1AHash.java:33-42).
+    The host's one copy of the hash; hash_canonical_kmers is the batched
+    torch form over reads."""
+    codes = np.asarray(codes, np.uint64)
+    n, k = codes.shape
+    if hasher == "poly":
+        fw = np.ones(n, np.uint64)
+    elif hasher == "fnv1a":
+        fw = np.full(n, np.uint64(FNV_OFFSET_BASIS & MASK64))
+    else:
+        raise ValueError(hasher)
+    rc = fw.copy()
+    prime = np.uint64(FNV_PRIME)
+    five = np.uint64(POLY_BASE)
+    three = np.uint64(3)
+    with np.errstate(over="ignore"):
+        for t in range(k):
+            cf = codes[:, t]
+            cr = codes[:, k - 1 - t] ^ three
+            if hasher == "poly":
+                fw = fw * five + cf
+                rc = rc * five + cr
+            else:
+                fw = (fw ^ cf) * prime
+                rc = (rc ^ cr) * prime
+    return np.minimum(fw.view(np.int64), rc.view(np.int64))
+
+
+def codes_matrix_of_kmer_strings(kmers: list[str], k: int) -> np.ndarray:
+    """(N, k) int8 nucleotide codes of equal-length plain-ACGT strings."""
+    from ..dna import CHAR_TO_CODE
+    raw = np.frombuffer("".join(kmers).encode("ascii"), np.uint8)
+    return CHAR_TO_CODE[raw].reshape(len(kmers), k)
+
+
 def keys_of_kmer_strings(kmers: list[str], k: int, hasher: str | None
                          ) -> np.ndarray:
     """Vectorized hash_str over N equal-length plain-ACGT k-mer strings:
-    canonical 2-bit code min(fw, rc) (itmo:utils/KmerUtils.java:59-61)."""
-    if hasher is not None:
-        raise NotImplementedError(_HASHED)
+    canonical 2-bit code min(fw, rc) (itmo:utils/KmerUtils.java:59-61) in the
+    exact regime, canonical poly/FNV-1a (hash_codes_np) in the hashed one."""
     if not kmers:
         return np.empty(0, np.int64)
-    from ..dna import CHAR_TO_CODE
-    raw = np.frombuffer("".join(kmers).encode("ascii"), np.uint8)
-    u = CHAR_TO_CODE[raw].reshape(len(kmers), k).astype(np.uint64)
+    codes = codes_matrix_of_kmer_strings(kmers, k)
+    if hasher is not None:
+        return hash_codes_np(codes, hasher)
+    u = codes.astype(np.uint64)
     shifts = (2 * (k - 1 - np.arange(k))).astype(np.uint64)
     fw = (u << shifts[None, :]).sum(axis=1, dtype=np.uint64)
     rshifts = (2 * np.arange(k)).astype(np.uint64)
@@ -85,11 +214,12 @@ def keys_of_kmer_strings(kmers: list[str], k: int, hasher: str | None
 
 
 def hash_str(s: str, hasher: str | None) -> int:
-    """Canonical key of a k-mer string (host)."""
-    if hasher is not None:
-        raise NotImplementedError(_HASHED)
-    from ..dna import kmer_to_code, canonical_code
-    return _signed(canonical_code(kmer_to_code(s), len(s)))
+    """Canonical key of a k-mer string under the given regime (host)."""
+    if hasher is None:
+        from ..dna import kmer_to_code, canonical_code
+        return _signed(canonical_code(kmer_to_code(s), len(s)))
+    return int(hash_codes_np(codes_matrix_of_kmer_strings([s], len(s)),
+                             hasher)[0])
 
 
 def pack_reads(fragments: list[np.ndarray], batch: int, length: int

@@ -4,8 +4,9 @@ Counterpart of metacherchant_tpu/ops/sortcount.py::StreamCounter:
 
   append:       extract canonical keys of a (B, L) code batch, drop the
                 first k-1 columns and write the rest flat at buf[offset:]
-                (append_codes; the CUDA kernel of ops/extract_cuda.py on a
-                GPU, its plain torch version on the CPU)
+                (append_codes; exact keys through the CUDA kernel of
+                ops/extract_cuda.py on a GPU and its plain torch version on
+                the CPU, hashed keys through ops/kmers.hash_canonical_kmers)
   consolidate:  when the buffer is full, merge it into the sorted (key,
                 count) store: one sort of store + buffer, an int64 cumsum of
                 the weights, the run-last lanes kept by a boolean mask, and
@@ -28,7 +29,7 @@ import torch
 
 from ..kmer_map import SATURATION
 from .extract_cuda import extract_append
-from .kmers import SENTINEL
+from .kmers import SENTINEL, hash_canonical_kmers
 
 #: store counts clamp far above the 32767 output saturation, so repeated
 #: consolidations cannot overflow int32 yet keep min(total, 32767)
@@ -36,7 +37,7 @@ _COUNT_CLAMP = 1_000_000_000
 
 
 def append_codes(buf: torch.Tensor, offset: int, codes: torch.Tensor,
-                 k: int) -> int:
+                 k: int, hasher: str | None = None) -> int:
     """Append the keys of a (B, L) int8 code batch at buf[offset:] (the
     first k-1 key columns of every row never hold a window and are dropped).
     Returns the new offset. Raises where the JAX append would clamp."""
@@ -44,7 +45,11 @@ def append_codes(buf: torch.Tensor, offset: int, codes: torch.Tensor,
     if offset + n > buf.numel():
         raise ValueError(f"append of {n} keys at offset {offset} overflows "
                          f"the {buf.numel()}-lane buffer")
-    extract_append(codes, k, buf[offset:offset + n])
+    if hasher is None:
+        extract_append(codes, k, buf[offset:offset + n])
+    else:
+        keys, _ = hash_canonical_kmers(codes, k, hasher)
+        buf[offset:offset + n] = keys[:, k - 1:].reshape(-1)
     return offset + n
 
 
@@ -106,13 +111,14 @@ class StreamCounter:
             np.asarray(store_cnts, np.int32)[:live].copy()).to(sc.device)
         return sc
 
-    def add_codes(self, codes: torch.Tensor, k: int) -> None:
+    def add_codes(self, codes: torch.Tensor, k: int,
+                  hasher: str | None = None) -> None:
         width = codes.shape[1] - k + 1  # first k-1 key columns are trimmed
         if width <= 0:
             return  # no window fits: nothing to count
         if self.offset + codes.shape[0] * width > self.buffer_cap:
             self._consolidate()
-        self.offset = append_codes(self.buf, self.offset, codes, k)
+        self.offset = append_codes(self.buf, self.offset, codes, k, hasher)
 
     def _grow(self, live: int) -> None:
         """Store growth as metacherchant_tpu's StreamCounter._resolve: double

@@ -14,7 +14,10 @@ from .tool import Tool
 
 def _registry() -> dict[str, type[Tool]]:
     from .tools.environment_finder import EnvironmentFinderMain
-    return {EnvironmentFinderMain.NAME: EnvironmentFinderMain}
+    from .tools.kmer_counter import KmersCounter
+    from .tools.reads_classifier import ReadsClassifier
+    return {cls.NAME: cls for cls in
+            (EnvironmentFinderMain, KmersCounter, ReadsClassifier)}
 
 
 DEFAULT_TOOL = "environment-finder"

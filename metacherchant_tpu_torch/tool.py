@@ -24,11 +24,21 @@ import logging
 import os
 import sys
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
 
 
 class ExecutionFailedException(Exception):
     pass
+
+
+def tool_device():
+    """The torch device of device.py (MC_PLATFORM); a device that cannot be
+    had fails the tool."""
+    from .device import device
+    try:
+        return device()
+    except (RuntimeError, ValueError) as e:
+        raise ExecutionFailedException(str(e)) from None
 
 
 @dataclass
@@ -40,12 +50,15 @@ class Parameter:
     default: Any = None
     description: str = ""
     multi: bool = False
+    lazy_default: Callable[["Tool"], Any] | None = None
     _value: Any = field(default=None, repr=False)
     _set: bool = field(default=False, repr=False)
 
     def get(self, tool: "Tool | None" = None):
         if self._set:
             return self._value
+        if self.lazy_default is not None and tool is not None:
+            return self.lazy_default(tool)
         return self.default
 
     def set(self, value) -> None:
@@ -239,6 +252,9 @@ class Tool:
     def run_impl(self) -> None:
         raise NotImplementedError
 
-    # logging helper mirroring Tool.info (Tool.java:1075-1126)
+    # logging helpers mirroring Tool.info/warn (Tool.java:1075-1126)
     def info(self, msg, *args):
         self.logger.info(msg, *args)
+
+    def warn(self, msg, *args):
+        self.logger.warning(msg, *args)

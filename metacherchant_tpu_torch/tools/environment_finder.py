@@ -1,20 +1,18 @@
 """environment-finder: the primary workload.
 
-Reimplements src/tools/EnvironmentFinderMain.java for the exact regime
-(k <= 31): count k-mers from reads on the device, then one BFS environment
-per gene sequence (or one merged environment), with per-gene output
-directories named by the FASTA comment (:245-249). Carried over from
-metacherchant_tpu/tools/environment_finder.py; the hashed regime (k > 31 or
---forcehash) is not ported yet and fails with an error.
+Reimplements src/tools/EnvironmentFinderMain.java: count k-mers from reads on
+the device (exactly for k <= 31, by hash for k > 31 or --forcehash), then one
+BFS environment per gene sequence (or one merged environment), with per-gene
+output directories named by the FASTA comment (:245-249). Carried over from
+metacherchant_tpu/tools/environment_finder.py.
 """
 from __future__ import annotations
 
 import os
 
-from ..tool import Tool, Parameter, ExecutionFailedException
+from ..tool import Tool, Parameter, ExecutionFailedException, tool_device
 from ..io.readers import read_rich_fasta
 from ..counting import count_kmers_device
-from ..device import device
 from ..algo.calculator import run_one_sequence
 
 
@@ -66,13 +64,16 @@ class EnvironmentFinderMain(Tool):
             "merge", bool, default=False,
             description="Draw single environment for multiple input sequences?"))
 
-    def check_hashing(self) -> None:
-        """src/tools/EnvironmentFinderMain.java:157-169 picks a hash function
-        for k > 31 or --forcehash; that regime is not ported yet."""
-        if self.k.get(self) > 31 or self.force_hashing.get(self):
-            raise ExecutionFailedException(
-                "hashed regime (k > 31 or --forcehash) not yet ported; "
-                "use k <= 31 without --forcehash")
+    def determine_hash_function(self) -> str | None:
+        """src/tools/EnvironmentFinderMain.java:157-169."""
+        if self.k.get(self) <= 31 and not self.force_hashing.get(self):
+            return None
+        name = self.hash_function.get(self).lower()
+        if name == "fnv1a":
+            self.info("Using FNV1a hash function")
+            return "fnv1a"
+        self.info("Using default polynomial hash function")
+        return "poly"
 
     def check_termination(self) -> None:
         """getTerminationMode (:171-183)."""
@@ -81,16 +82,15 @@ class EnvironmentFinderMain(Tool):
                 "At least one of --maxkmers and --maxradius parameters should be set")
 
     def load_input(self):
-        self.check_hashing()
-        try:
-            dev = device()
-        except (RuntimeError, ValueError) as e:
-            raise ExecutionFailedException(str(e)) from None
+        hasher = self.determine_hash_function()
+        if hasher is not None:
+            self.info("Reading hashes of k-mers instead")
+        dev = tool_device()
         for f in self.reads_files.get(self) or []:
             if not os.path.exists(f):
                 raise ExecutionFailedException(f"Could not load reads from {f}")
         kmap = count_kmers_device(self.reads_files.get(self) or [],
-                                  self.k.get(self), device=dev)
+                                  self.k.get(self), hasher, device=dev)
         self.info("Hashtable size: %d kmers", len(kmap))
         try:
             records = read_rich_fasta(self.seqs_file.get(self))
@@ -108,11 +108,11 @@ class EnvironmentFinderMain(Tool):
             except OSError:
                 raise ExecutionFailedException(
                     f"Could not load Hi-C sequences from {hic}")
-        return kmap, records, hic_records
+        return kmap, records, hic_records, hasher
 
     def run_impl(self) -> None:
         self.check_termination()
-        kmap, records, hic_records = self.load_input()
+        kmap, records, hic_records, hasher = self.load_input()
         out = self.output_dir.get(self)
         common = dict(
             k=self.k.get(self), kmap=kmap,
@@ -121,7 +121,7 @@ class EnvironmentFinderMain(Tool):
             chunk_length=self.chunk_length.get(self),
             max_radius=self.max_radius.get(self),
             max_kmers=self.max_kmers.get(self),
-            trim=self.trim_paths.get(self))
+            trim=self.trim_paths.get(self), hasher=hasher)
         if not self.do_merge.get(self):
             # one calculator per gene, task-parallel like the reference's
             # ExecutorService (src/tools/EnvironmentFinderMain.java:218-233);

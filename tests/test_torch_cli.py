@@ -6,6 +6,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from metacherchant_tpu.runner import main as jax_main
 from metacherchant_tpu_torch.runner import main as port_main
@@ -24,6 +25,24 @@ def recipe(tmp_path_factory):
     (tmp / "reads.fastq").write_text("".join(
         f"@r{i}\n{g[s:s + 60]}\n+\n{'I' * 60}\n"
         for i, s in enumerate(rng.integers(0, 2940, size=500))))
+    (tmp / "genes.fasta").write_text(
+        f">geneA\n{g[1000:1120]}\n>geneB\n{g[2200:2300]}\n")
+    return str(tmp / "reads.fastq"), str(tmp / "genes.fasta")
+
+
+@pytest.fixture(scope="module")
+def long_recipe(tmp_path_factory):
+    """For k > 31: 400 reads of 150 bp (every 40th with an N) from a 3 kbp
+    genome, the same two genes."""
+    tmp = tmp_path_factory.mktemp("long_recipe")
+    rng = np.random.default_rng(12)
+    g = "".join(rng.choice(list("ACGT"), size=3000))
+    reads = []
+    for i, s in enumerate(rng.integers(0, 2850, size=400)):
+        r = g[s:s + 150]
+        reads.append(r[:70] + "N" + r[71:] if i % 40 == 0 else r)
+    (tmp / "reads.fastq").write_text("".join(
+        f"@r{i}\n{r}\n+\n{'I' * 150}\n" for i, r in enumerate(reads)))
     (tmp / "genes.fasta").write_text(
         f">geneA\n{g[1000:1120]}\n>geneB\n{g[2200:2300]}\n")
     return str(tmp / "reads.fastq"), str(tmp / "genes.fasta")
@@ -51,18 +70,34 @@ def _log(wd) -> str:
         return fh.read()
 
 
-@pytest.mark.parametrize("k,extra", [
-    (21, ()), (31, ()), (21, ("--bothdirs", "--trim")),
-    (25, ("--merge", "--maxkmers", "60", "--chunklength", "30")),
-], ids=["k21", "k31", "k21-bothdirs-trim", "k25-merge-maxkmers"])
-def test_outputs_byte_identical_to_jax(recipe, k, extra, tmp_path,
+def _hash_lines(wd) -> list[str]:
+    """The regime and graph-size log lines, without timestamps."""
+    return [ln.split(": ", 1)[1] for ln in _log(wd).splitlines()
+            if "hash" in ln or "Hashtable size" in ln]
+
+
+@pytest.mark.parametrize("data,k,extra", [
+    ("recipe", 21, ()), ("recipe", 31, ()),
+    ("recipe", 21, ("--bothdirs", "--trim")),
+    ("recipe", 25, ("--merge", "--maxkmers", "60", "--chunklength", "30")),
+    ("long_recipe", 55, ()), ("long_recipe", 55, ("--hash", "fnv1a")),
+    ("recipe", 21, ("--forcehash",)),
+    ("long_recipe", 55, ("--bothdirs", "--trim")),
+    ("long_recipe", 55, ("--merge", "--maxkmers", "60", "--chunklength",
+                         "30")),
+], ids=["k21", "k31", "k21-bothdirs-trim", "k25-merge-maxkmers",
+        "k55-poly", "k55-fnv1a", "k21-forcehash", "k55-bothdirs-trim",
+        "k55-merge-maxkmers"])
+def test_outputs_byte_identical_to_jax(data, k, extra, tmp_path, request,
                                        monkeypatch):
     monkeypatch.setenv("MC_PLATFORM", "cpu")
+    recipe = request.getfixturevalue(data)
     assert jax_main(_args(recipe, k, tmp_path / "oj", tmp_path / "wj",
                           *extra)) == 0
     assert port_main(_args(recipe, k, tmp_path / "ot", tmp_path / "wt",
                            *extra)) == 0
     want, got = _tree(tmp_path / "oj"), _tree(tmp_path / "ot")
+    assert _hash_lines(tmp_path / "wt") == _hash_lines(tmp_path / "wj")
     dirs = ("merged",) if "--merge" in extra else ("geneA", "geneB")
     for d in dirs:
         for name in OUTPUTS:
@@ -73,18 +108,24 @@ def test_outputs_byte_identical_to_jax(recipe, k, extra, tmp_path,
         assert got[name] == want[name], name
 
 
-def test_python_oracle_paths_match_jax(recipe, tmp_path, monkeypatch):
+@pytest.mark.parametrize("data,k,extra", [
+    ("recipe", 21, ("--trim",)), ("long_recipe", 55, ("--trim",)),
+    ("long_recipe", 55, ("--hash", "fnv1a")),
+], ids=["k21-trim", "k55-poly-trim", "k55-fnv1a"])
+def test_python_oracle_paths_match_jax(data, k, extra, tmp_path, request,
+                                       monkeypatch):
     """The port with its Python readers and Python FIFO BFS (the native
     engines off) against the JAX package's default run."""
     monkeypatch.setenv("MC_PLATFORM", "cpu")
-    extra = ("--trim",)
-    assert jax_main(_args(recipe, 21, tmp_path / "oj", tmp_path / "wj",
+    recipe = request.getfixturevalue(data)
+    assert jax_main(_args(recipe, k, tmp_path / "oj", tmp_path / "wj",
                           *extra)) == 0
     monkeypatch.setenv("MC_NATIVE_IO", "0")
     monkeypatch.setenv("MC_NATIVE_BFS", "0")
-    assert port_main(_args(recipe, 21, tmp_path / "ot", tmp_path / "wt",
+    assert port_main(_args(recipe, k, tmp_path / "ot", tmp_path / "wt",
                            *extra)) == 0
     assert _tree(tmp_path / "ot") == _tree(tmp_path / "oj")
+    assert _tree(tmp_path / "ot")
 
 
 def test_continue_skips_finished_run(recipe, tmp_path, monkeypatch):
@@ -97,12 +138,12 @@ def test_continue_skips_finished_run(recipe, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("k,extra,env", [
-    (55, (), {}),
-    (21, ("--forcehash",), {}),
     (21, (), {"MC_DEVICE_BFS": "1"}),
+    (55, (), {"MC_DEVICE_BFS": "1"}),
     (21, (), {"MC_DEVICE_CONTRACT": "1"}),
     (21, (), {"MC_COUNT_ENGINE": "hash"}),
-], ids=["k55", "forcehash", "device-bfs", "device-contract", "hash-engine"])
+], ids=["device-bfs", "device-bfs-hashed", "device-contract",
+        "hash-engine"])
 def test_unported_paths_fail_clearly(recipe, k, extra, env, tmp_path,
                                      monkeypatch):
     monkeypatch.setenv("MC_PLATFORM", "cpu")
@@ -116,5 +157,27 @@ def test_unported_paths_fail_clearly(recipe, k, extra, env, tmp_path,
 
 
 def test_unknown_tool(capsys):
-    assert port_main(["-t", "kmer-counter"]) == 1
+    assert port_main(["-t", "no-such-tool"]) == 1
     assert "Unknown tool" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("tool", ["environment-finder", "kmer-counter",
+                                  "reads-classifier"])
+def test_cuda_without_gpu_fails_clearly(recipe, tool, tmp_path, monkeypatch):
+    """MC_PLATFORM=cuda where torch sees no GPU: rc 1 and the reason in the
+    log, never a silent run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    monkeypatch.setenv("MC_PLATFORM", "cuda")
+    reads, _ = recipe
+    args = {"environment-finder": _args(recipe, 21, tmp_path / "out",
+                                        tmp_path / "wd")[2:],
+            "kmer-counter": ["-k", "21", "-i", reads, "-o",
+                             str(tmp_path / "out"),
+                             "--work-dir", str(tmp_path / "wd")],
+            "reads-classifier": ["-k", "21", "-i", reads, "-r", reads,
+                                 "-o", str(tmp_path / "out"),
+                                 "--work-dir", str(tmp_path / "wd")]}[tool]
+    assert port_main(["-t", tool, *args]) == 1
+    assert "no CUDA device" in _log(tmp_path / "wd")
+    assert not os.path.exists(tmp_path / "wd" / "SUCCESS")

@@ -83,9 +83,10 @@ def test_kmer_map_from_jax_numpy(reads_fastq):
 def test_seed_keys_of_sequence_matches_jax():
     rng = np.random.default_rng(4)
     seq = "".join(rng.choice(list("ACGT"), 300))
-    for k in (5, 21, 31):
-        assert np.array_equal(seed_keys_of_sequence(seq, k, None),
-                              jax_seed_keys(seq, k, None))
+    for k, hasher in ((5, None), (21, None), (31, None), (21, "poly"),
+                      (55, "poly"), (63, "fnv1a")):
+        assert np.array_equal(seed_keys_of_sequence(seq, k, hasher),
+                              jax_seed_keys(seq, k, hasher))
 
 
 @pytest.mark.parametrize("engine", ["hash", "merge", "chunk", "sharded"])
@@ -95,11 +96,19 @@ def test_unported_engines_raise(reads_fastq, engine, monkeypatch):
         count_kmers_device([reads_fastq], 21, device=CPU)
 
 
-def test_hashed_counting_raises(reads_fastq):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        count_kmers_device([reads_fastq], 55, "poly", device=CPU)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        count_kmers_host([reads_fastq], 21, "fnv1a")
+@pytest.mark.parametrize("k,hasher", [(55, "poly"), (55, "fnv1a"),
+                                      (21, "poly")])
+def test_hashed_counting_matches_jax_and_host(reads_fastq, k, hasher):
+    """k > 31 and --forcehash (k = 21): device counting of hashed keys, with
+    N gaps, chunked long reads and store growth."""
+    got = count_kmers_device([reads_fastq], k, hasher, device=CPU, **GEOM)
+    want = jax_count_device([reads_fastq], k, hasher, **GEOM)
+    host = count_kmers_host([reads_fastq], k, hasher)
+    assert len(got) > 1000
+    assert k < 32 or (got.keys < 0).any()
+    for other in (want, host, jax_count_host([reads_fastq], k, hasher)):
+        assert np.array_equal(got.keys, other.keys)
+        assert np.array_equal(got.counts, other.counts)
 
 
 def test_device_choice(monkeypatch):

@@ -1,6 +1,8 @@
 """Tests of the port that need a CUDA GPU: the extraction kernel against its
-plain torch version on the card, and the main path on the card against the
-host oracle and against the same run on the CPU.
+plain torch version on the card, the hashed keys and the map lookup on the
+card against the CPU, the device classify coverage against the host one, and
+the main path on the card against the host oracle and against the same run
+on the CPU.
 
 They skip where torch sees no CUDA device. This file imports no JAX, so it
 also runs on a machine without it (tests/conftest.py imports JAX, hence
@@ -9,16 +11,20 @@ also runs on a machine without it (tests/conftest.py imports JAX, hence
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 import os
+import threading
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from metacherchant_tpu_torch.algo import classify
 from metacherchant_tpu_torch.counting import (count_kmers_device,
                                               count_kmers_host)
+from metacherchant_tpu_torch.io.readers import DnaQ
+from metacherchant_tpu_torch.kmer_map import KmerMap
 from metacherchant_tpu_torch.ops import extract_cuda
-from metacherchant_tpu_torch.ops.kmers import SENTINEL
+from metacherchant_tpu_torch.ops.kmers import SENTINEL, hash_canonical_kmers
 from metacherchant_tpu_torch.ops.sortcount import append_codes
 from metacherchant_tpu_torch.runner import main as port_main
 
@@ -117,3 +123,75 @@ def test_cli_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
             os.path.relpath(os.path.join(d, n), out): Path(d, n).read_bytes()
             for d, _, names in os.walk(out) for n in names}
     assert trees["cuda"] and trees["cuda"] == trees["cpu"]
+
+
+def test_launch_count_is_exact_across_threads(cuda):
+    codes = torch.from_numpy(_codes(9, 64, 100)).to(cuda)
+    outs = [torch.empty(64 * 80, dtype=torch.int64, device=cuda)
+            for _ in range(8)]
+    before = extract_cuda.LAUNCHES
+
+    def work(out):
+        for _ in range(50):
+            extract_cuda.extract_append(codes, 21, out)
+
+    threads = [threading.Thread(target=work, args=(o,)) for o in outs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert extract_cuda.LAUNCHES == before + 400
+
+
+@pytest.mark.parametrize("k", [32, 55, 63])
+@pytest.mark.parametrize("hasher", ["poly", "fnv1a"])
+def test_hashed_keys_on_card_match_cpu(cuda, k, hasher):
+    """Rows of 256 codes, where the poly sums and FNV products wrap."""
+    codes = torch.from_numpy(_codes(k, 777, 256))
+    got, got_ok = hash_canonical_kmers(codes.to(cuda), k, hasher)
+    want, want_ok = hash_canonical_kmers(codes, k, hasher)
+    assert torch.equal(got_ok.cpu(), want_ok)
+    assert torch.equal(got.cpu(), want)
+    assert bool((want[want_ok] < 0).any())
+
+
+def test_lookup_device_on_card_matches_get_many(cuda):
+    rng = np.random.default_rng(3)
+    keys = np.unique(rng.integers(np.iinfo(np.int64).min,
+                                  np.iinfo(np.int64).max, 200_000,
+                                  dtype=np.int64))
+    kmap = KmerMap(keys, rng.integers(1, 40000, keys.size))
+    q = np.concatenate([keys[::3], rng.integers(
+        np.iinfo(np.int64).min, np.iinfo(np.int64).max, 50_000,
+        dtype=np.int64), [np.iinfo(np.int64).min, np.iinfo(np.int64).max]])
+    got = kmap.lookup_device(torch.from_numpy(q).to(cuda))
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert np.array_equal(got.cpu().numpy(), kmap.get_many(q))
+    empty = KmerMap(np.empty(0, np.int64), np.empty(0, np.int32))
+    assert torch.all(empty.lookup_device(torch.from_numpy(q).to(cuda)) == -1)
+
+
+@pytest.mark.parametrize("k,hasher", [(21, None), (31, None), (33, "poly"),
+                                      (55, "fnv1a")])
+def test_device_coverage_on_card_matches_host(cuda, k, hasher, tmp_path,
+                                             monkeypatch):
+    monkeypatch.setenv("MC_PLATFORM", "cuda")
+    rng = np.random.default_rng(k)
+    genome = "".join(rng.choice(list("ACGT"), 5000))
+    reads = [genome[s:s + int(n)] for s, n in
+             zip(rng.integers(0, 4800, 500), rng.integers(10, 150, 500))]
+    reads += ["".join(rng.choice(list("ACGTN"), 120)) for _ in range(100)]
+    monkeypatch.delenv("MC_DEVICE_CLASSIFY", raising=False)
+    fasta = tmp_path / "genome.fasta"
+    fasta.write_text(f">g1\n{genome}\n>g2\n{genome}\n")
+    counted = count_kmers_host([str(fasta)], k, hasher)
+    batch = classify.ReadBatch.from_dnaqs(
+        [DnaQ.from_string(r, 30) for r in reads])
+    before = extract_cuda.LAUNCHES
+    got = classify._coverage_device(batch, counted, k, hasher)
+    assert extract_cuda.LAUNCHES == before + (hasher is None)
+    want = classify._coverage(batch, counted, k, hasher)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert (want > 0).any()

@@ -95,11 +95,63 @@ def test_extract_append_rejects_bad_input(case):
         extract_append(codes, k, out)
 
 
-def test_hashed_regime_not_ported():
-    for call in (lambda: tk.keys_of_kmer_strings(["ACGT"], 4, "fnv1a"),
-                 lambda: tk.hash_str("ACGT", "poly")):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
+HASHED = [(k, h) for k in (32, 55, 63) for h in ("poly", "fnv1a")]
+
+
+@pytest.mark.parametrize("k,hasher", HASHED + [(21, "poly"), (5, "fnv1a")])
+def test_hash_canonical_kmers_matches_jax(k, hasher):
+    """Rows of 256 codes: the poly prefix sums and the FNV-1a products wrap
+    mod 2^64, and keys take every sign."""
+    codes = _codes(k, (64, 256))
+    keys, ok = tk.hash_canonical_kmers(
+        torch.from_numpy(codes.astype(np.int8)), k, hasher)
+    want_k, want_ok = map(np.asarray, jk.hash_canonical_kmers(
+        jnp.asarray(codes), k, hasher))
+    assert keys.dtype == torch.int64
+    assert np.array_equal(ok.numpy(), want_ok)
+    assert np.array_equal(keys.numpy(), want_k)
+    if (k, hasher) in HASHED:
+        live = keys.numpy()[want_ok]
+        assert (live < 0).any() and (live >= 0).any()
+
+
+def test_hash_canonical_kmers_rejects_unknown_hash():
+    with pytest.raises(ValueError, match="unknown hash"):
+        tk.hash_canonical_kmers(torch.zeros((2, 40), dtype=torch.int8), 33,
+                                "xxhash")
+
+
+@pytest.mark.parametrize("k,hasher", [(21, "poly"), (33, "fnv1a"),
+                                      (55, "poly")])
+def test_hashed_append_matches_jax_append_kernel(k, hasher):
+    batches = [_codes(300 + k, (64, 90)), _codes(400 + k, (64, 90))]
+    cap = 2 * 64 * (90 - k + 1) + 50
+    jbuf, joff = jnp.full((cap,), jk.SENTINEL, jnp.int64), jnp.int32(7)
+    buf, off = torch.full((cap,), tk.SENTINEL, dtype=torch.int64), 7
+    for b in batches:
+        jbuf, joff = _append_kernel(jbuf, joff, jnp.asarray(b), k, hasher)
+        off = append_codes(buf, off, torch.from_numpy(b.astype(np.int8)), k,
+                           hasher)
+        assert off == int(joff)
+    assert np.array_equal(buf.numpy(), np.asarray(jbuf))
+
+
+@pytest.mark.parametrize("hasher", ["poly", "fnv1a"])
+def test_host_hash_helpers_match_jax(hasher):
+    rng = np.random.default_rng(5)
+    for k in (21, 33, 63):
+        kmers = ["".join(rng.choice(list("ACGT"), k)) for _ in range(150)]
+        rows = tk.codes_matrix_of_kmer_strings(kmers, k)
+        assert np.array_equal(rows, jk.codes_matrix_of_kmer_strings(kmers, k))
+        keys = tk.hash_codes_np(rows, hasher)
+        assert keys.dtype == np.int64
+        assert np.array_equal(keys, jk.hash_codes_np(rows, hasher))
+        assert np.array_equal(tk.keys_of_kmer_strings(kmers, k, hasher), keys)
+        for s, key in zip(kmers[:20], keys.tolist()):
+            assert tk.hash_str(s, hasher) == jk.hash_str(s, hasher) == key
+    assert (keys < 0).any()
+    with pytest.raises(ValueError):
+        tk.hash_str("ACGT", "xxhash")
 
 
 @pytest.mark.parametrize("k", KS)
