@@ -3,8 +3,9 @@
     python3 chip_smoke.py [--seed N]
 
 Drives metacherchant_tpu_torch's paths (environment-finder in the exact and
-hashed regimes, kmer-counter -> reads-classifier, `sort` counting engine) at
-a real data size and checks them:
+hashed regimes, kmer-counter -> reads-classifier, triple-reads-classifier,
+seq-cov, the three FMT tools, the device contraction, `sort` counting engine)
+at a real data size and checks them:
 
   1. device         the card's name and power limit;
   2. build          the CUDA extraction kernel (nvcc, sm_90a) and the native
@@ -30,7 +31,28 @@ a real data size and checks them:
   9. classify slice kmer-counter -k 31 on the data of phase 5, then
                     reads-classifier on its dump for 333,334 read pairs (half
                     from those genomes, half from 20 others), with the host
-                    coverage and with MC_DEVICE_CLASSIFY, bins compared.
+                    coverage and with MC_DEVICE_CLASSIFY, bins compared;
+ 10. contract-ops   the device contraction (contract_codes_device) on about
+                    400K canonical 31-mers (a 400 kbp genome, cycles, color
+                    tags) on the card against the CPU, bit for bit, with the
+                    card's ms and the host assembly's seconds; and a small
+                    environment-finder under MC_DEVICE_CONTRACT=1 on the card
+                    against the CPU;
+ 11. triple-slice   kmer-counter -k 55 on the data of phase 5, then
+                    triple-reads-classifier -k 31 -k2 55 on the dumps for the
+                    read pairs of phase 9, host and device coverage, nine
+                    bins compared;
+ 12. seq-cov        small bins on the card against the CPU, then four bins of
+                    the reads of phase 5 against the three genes and three
+                    pieces of the other genomes (breadth near 1 and 0);
+ 13. fmt            synthetic donor, before and after metagenomes of 400 kbp
+                    (20x, 0.1% substitutions) and their classified bins:
+                    fmt-visualiser -k 31 with the host sweep and with
+                    MC_DEVICE_CONTRACT=1 (same unitigs and colors),
+                    recipient-visualiser on three genes, and on a 20 kbp set
+                    of error-free reads fmt-visualizer -k 31 and
+                    fmt-visualiser -k 55 on the card against the CPU, byte
+                    for byte.
 
 Every phase prints its own lines and its seconds; any failure exits
 non-zero. The last two lines are the kernels' JSON record and the device
@@ -40,6 +62,7 @@ device: without one it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import logging
 import os
@@ -60,6 +83,13 @@ CLASSIFY_PAIRS = 333_334
 CLASSIFY_BATCH = 8192   # tools/reads_classifier.py
 READ_LEN = 150
 LOOKUP_KEYS, LOOKUP_QUERIES = 20_000_000, 10_000_000
+CONTRACT_GENOME = 400_000
+TRIPLE_K2 = 55
+#: FMT genomes (kbp): settling and not settling donor strains, staying and
+#: gone recipient strains, one shared by both, one new in the recipient
+FMT_PARTS = {"settle": 150, "not_settle": 200, "stay": 150, "gone": 200,
+             "shared": 50, "new": 50}
+FMT_SMALL = 20  # the 20 kbp set: every part divided by this
 
 
 class SmokeFailure(Exception):
@@ -269,6 +299,9 @@ def drive(argv: list[str], **env: str) -> Run:
     os.environ.update(env)
     stamps = _Stamps()
     logging.getLogger().addHandler(stamps)
+    # collect the cyclic garbage of earlier runs (the host sweep's Node
+    # pairs) here, so that no run pays for the one before it
+    gc.collect()
     extract_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
     try:
@@ -306,29 +339,34 @@ def phase_oracle(rng, genomes: np.ndarray, tmp: str) -> str:
                   f"(device counting {t_dev:.3f} s)")
     genes = os.path.join(tmp, "small_genes.fasta")
     write_genes(genes, [genomes[0, 50_000:50_500]])
-    outs = small_run_on_both(tmp, fq, genes, MAIN_K, ())
+    outs, _ = small_run_on_both(tmp, fq, genes, MAIN_K, ())
     say("oracle", f"small environment-finder: {len(outs)} output "
                   f"files byte-identical between cuda and cpu")
     return fq
 
 
 def small_run_on_both(tmp: str, fq: str, genes: str, k: int,
-                      extra: tuple[str, ...]) -> dict[str, bytes]:
-    """A small environment-finder run on the card and on the CPU; fails
-    unless their outputs are byte-identical and not empty."""
+                      extra: tuple[str, ...], **env: str
+                      ) -> tuple[dict[str, bytes], int]:
+    """A small environment-finder run on the card and on the CPU, with
+    `env` set; fails unless their outputs are byte-identical and not empty.
+    Returns the outputs and the card run's kernel launches."""
     outs = {}
+    tag = "_".join(f"{n}{v}" for n, v in env.items())
     for platform in ("cuda", "cpu"):
-        out = os.path.join(tmp, f"small_out_{k}_{platform}")
-        drive(["-t", "environment-finder", "-k", str(k), "-i", fq,
-               "--seq", genes, "-o", out, "--coverage", "3",
-               "--maxradius", "200", *extra,
-               "--work-dir", os.path.join(tmp, f"wd_{k}_{platform}")],
-              MC_PLATFORM=platform)
+        out = os.path.join(tmp, f"small_out_{k}_{platform}{tag}")
+        run = drive(["-t", "environment-finder", "-k", str(k), "-i", fq,
+                     "--seq", genes, "-o", out, "--coverage", "3",
+                     "--maxradius", "200", *extra,
+                     "--work-dir", os.path.join(tmp, f"wd_{k}_{platform}{tag}")],
+                    MC_PLATFORM=platform, **env)
         outs[platform] = tree(out)
+        if platform == "cuda":
+            launches = run.launches
     check(outs["cuda"] == outs["cpu"] and bool(outs["cuda"]),
-          f"environment-finder -k {k} outputs on CUDA differ from the CPU "
-          f"run")
-    return outs["cuda"]
+          f"environment-finder -k {k} {env} outputs on CUDA differ from the "
+          f"CPU run")
+    return outs["cuda"], launches
 
 
 def check_gene_outputs(phase: str, out: str) -> None:
@@ -464,8 +502,8 @@ def phase_hashed_oracle(rng, genomes: np.ndarray, tmp: str, small_fq: str,
                              f"reads cuda == cpu == host oracle "
                              f"({len(host)} keys)")
     genes = os.path.join(tmp, "small_genes.fasta")
-    outs = small_run_on_both(tmp, small_fq, genes, HASH_K,
-                             ("--hash", "fnv1a"))
+    outs, _ = small_run_on_both(tmp, small_fq, genes, HASH_K,
+                                ("--hash", "fnv1a"))
     say("hashed-oracle", f"small environment-finder -k {HASH_K} --hash "
                          f"fnv1a: {len(outs)} output files byte-identical "
                          f"between cuda and cpu")
@@ -515,10 +553,25 @@ def read_set(codes: np.ndarray) -> list[bytes]:
     return [row.tobytes() for row in chars]
 
 
+def found_shares(bins: dict[str, bytes], mates: dict) -> dict[str, float]:
+    """Share of each origin's reads that landed in a found_* bin."""
+    found = set()
+    for name, blob in bins.items():
+        if name.startswith("found_"):
+            found.update(blob.split(b"\n")[1::4])
+    share = {}
+    for label, (m1, m2) in mates.items():
+        reads = read_set(m1) + read_set(m2)
+        share[label] = sum(r in found for r in reads) / len(reads)
+    return share
+
+
 def phase_classify_slice(rng, genomes: np.ndarray, fq: str, tmp: str,
-                         card: str) -> tuple[int, int]:
-    """Returns the kernel launches of kmer-counter and of the device
-    classify run."""
+                         card: str) -> dict:
+    """Returns the kernel launches of kmer-counter ("counter") and of the
+    device classify run ("classify"), the dump ("kbin"), the read files
+    ("r1", "r2"), the mates by origin ("mates") and the other genomes
+    ("genomes_b")."""
     n_reads = 20 * genomes.size // 150
     kmers = os.path.join(tmp, "kmers")
     run = drive(["-t", "kmer-counter", "-k", str(MAIN_K), "-i", fq,
@@ -580,14 +633,7 @@ def phase_classify_slice(rng, genomes: np.ndarray, fq: str, tmp: str,
     check(launches["device"] == want and launches["host"] == 0,
           f"classify launches: device {launches['device']} (want {want}), "
           f"host {launches['host']} (want 0)")
-    found = set()
-    for name, blob in bins["host"].items():
-        if name.startswith("found_"):
-            found.update(blob.split(b"\n")[1::4])
-    share = {}
-    for label, mates in (("A", (a1, a2)), ("B", (b1, b2))):
-        reads = read_set(mates[0]) + read_set(mates[1])
-        share[label] = sum(r in found for r in reads) / len(reads)
+    share = found_shares(bins["host"], {"A": (a1, a2), "B": (b1, b2)})
     say("classify-slice", f"six bins byte-identical between host and device "
                           f"coverage; device launches {launches['device']} = "
                           f"2 x ceil({CLASSIFY_PAIRS} / {CLASSIFY_BATCH}); "
@@ -596,7 +642,381 @@ def phase_classify_slice(rng, genomes: np.ndarray, fq: str, tmp: str,
     check(share["A"] >= 0.70 and share["B"] <= 0.01,
           f"found shares A {share['A']:.4f} (want >= 0.70), "
           f"B {share['B']:.4f} (want <= 0.01)")
-    return counter_launches, launches["device"]
+    return {"counter": counter_launches, "classify": launches["device"],
+            "kbin": kbin, "r1": r1, "r2": r2,
+            "mates": {"A": (a1, a2), "B": (b1, b2)}, "genomes_b": genomes_b}
+
+
+def window_keys(codes: np.ndarray, k: int) -> np.ndarray:
+    """Canonical exact keys min(fw, rc) of every k-window of one code
+    sequence (codes 0..3)."""
+    w = np.lib.stride_tricks.sliding_window_view(codes.astype(np.uint64), k)
+    up = (2 * np.arange(k)).astype(np.uint64)
+    fw = (w << up[::-1]).sum(axis=1, dtype=np.uint64)
+    rc = ((np.uint64(3) - w) << up).sum(axis=1, dtype=np.uint64)
+    return np.minimum(fw, rc).astype(np.int64)
+
+
+def contract_end_to_end(keys: np.ndarray, card: str) -> None:
+    """A picture's contraction end to end on the canonical k-mers of reads
+    (20x, 0.1% substitutions, so tips and bubbles; no cycle, where the two
+    routes may linearize differently): the host
+    sweep (build_node_graph + do_merge) against contract_device (tags,
+    transfers, the card, host assembly), in turns; fails unless their
+    unitig sets agree."""
+    from metacherchant_tpu_torch.algo.contraction import (build_node_graph,
+                                                          do_merge)
+    from metacherchant_tpu_torch.algo.environment import ascii_min_orient
+    from metacherchant_tpu_torch.dna import codes_to_kmers_np, normalize
+    from metacherchant_tpu_torch.ops.contraction_device import contract_device
+    kmers = sorted(codes_to_kmers_np(ascii_min_orient(keys, MAIN_K), MAIN_K))
+
+    def host():
+        nodes = build_node_graph(kmers, MAIN_K)
+        do_merge(nodes, MAIN_K)
+        return nodes
+
+    def device():
+        return contract_device(kmers, MAIN_K)
+
+    secs = {"host": [], "device": []}
+    seqs = {}
+    for name, fn in (("host", host), ("device", device), ("device", device),
+                     ("host", host)):
+        gc.collect()
+        t0 = time.perf_counter()
+        nodes = fn()
+        secs[name].append(time.perf_counter() - t0)
+        seqs[name] = sorted(normalize(n.seq) for n in nodes if not n.deleted)
+        del nodes
+    check(seqs["host"] == seqs["device"],
+          "contract_device's unitigs differ from the host sweep's")
+    say("contract-ops", f"a picture of {len(kmers)} k-mers end to end: host "
+                        f"sweep {min(secs['host']):.3f} s, contract_device "
+                        f"{min(secs['device']):.3f} s (runs: host "
+                        f"{secs['host'][0]:.3f}, {secs['host'][1]:.3f} s; "
+                        f"device {secs['device'][0]:.3f}, "
+                        f"{secs['device'][1]:.3f} s); the same "
+                        f"{len(seqs['host']) // 2} unitigs ({card})")
+
+
+def phase_contract_ops(rng, tmp: str, small_fq: str, card: str) -> int:
+    """Returns the kernel launches of the small environment-finder run
+    under MC_DEVICE_CONTRACT=1 on the card."""
+    from metacherchant_tpu_torch.ops.contraction_device import (
+        assemble_nodes, assemble_unitigs, contract_codes_device)
+    genome = rng.integers(0, 4, CONTRACT_GENOME).astype(np.int8)
+    keys = [window_keys(genome, MAIN_K)]
+    tags = [(np.arange(keys[0].size) // 20_000 % 3).astype(np.int32)]
+    for length in (1000, 5000, 20_000):  # pure cycles
+        circ = rng.integers(0, 4, length).astype(np.int8)
+        keys.append(window_keys(np.concatenate([circ, circ[:MAIN_K - 1]]),
+                                MAIN_K))
+        tags.append(np.full(length, 3, np.int32))
+    keys, first = np.unique(np.concatenate(keys), return_index=True)
+    tags = np.concatenate(tags)[first]
+    codes, tag_t = torch.from_numpy(keys), torch.from_numpy(tags)
+    dev = torch.device("cuda")
+    dc, dt = codes.to(dev), tag_t.to(dev)
+    got = contract_codes_device(dc, dt, MAIN_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = contract_codes_device(codes, tag_t, MAIN_K)
+    t_cpu = time.perf_counter() - t0
+    for name, g, w in zip(("U", "utags", "head", "dist"), got, want):
+        check(g.dtype == w.dtype and torch.equal(g.cpu(), w),
+              f"contract_codes_device on CUDA differs from the CPU in {name}")
+    fn = lambda: contract_codes_device(dc, dt, MAIN_K)  # noqa: E731
+    ms = min(_time_ms(fn, 5), _time_ms(fn, 5))
+    U, utags, head, dist = (t.cpu().numpy() for t in got)
+    t0 = time.perf_counter()
+    unitigs = assemble_unitigs(U, head, dist, MAIN_K)
+    nodes = assemble_nodes([(seq, None) for seq, _ in unitigs], MAIN_K)
+    t_asm = time.perf_counter() - t0
+    covered = sum(len(seq) - MAIN_K + 1 for seq, _ in unitigs)
+    check(covered == keys.size,
+          f"the unitigs hold {covered} k-mers of {keys.size}")
+    say("contract-ops", f"{keys.size} canonical {MAIN_K}-mers ({U.size} "
+                        f"oriented nodes, {int(tags.max()) + 1} tags, 3 "
+                        f"cycles): card == CPU for U, utags, head, dist; "
+                        f"{len(unitigs)} unitigs, {len(nodes)} nodes, every "
+                        f"k-mer in one unitig")
+    say("contract-ops", f"contract_codes_device {ms:.3f} ms on the card, "
+                        f"{t_cpu:.3f} s on the CPU; host assembly "
+                        f"(assemble_unitigs + assemble_nodes) {t_asm:.3f} s "
+                        f"({card})")
+    from metacherchant_tpu_torch.algo.classify import rolling_keys_np
+    reads = sample_reads(rng, genome[None, :], 20 * CONTRACT_GENOME // 150,
+                         150, 0.001)
+    contract_end_to_end(np.unique(rolling_keys_np(reads, MAIN_K, None)), card)
+    genes = os.path.join(tmp, "small_genes.fasta")
+    outs, launches = small_run_on_both(tmp, small_fq, genes, MAIN_K, (),
+                                       MC_DEVICE_CONTRACT="1")
+    check(launches > 0, "environment-finder under MC_DEVICE_CONTRACT=1 did "
+                        "not launch the kernel")
+    say("contract-ops", f"small environment-finder under "
+                        f"MC_DEVICE_CONTRACT=1: {len(outs)} output files "
+                        f"byte-identical between cuda and cpu; kernel "
+                        f"launches {launches}")
+    return launches
+
+
+def phase_triple_slice(fq: str, cls: dict, tmp: str, card: str) -> int:
+    """Returns the kernel launches of the device-coverage run."""
+    kmers55 = os.path.join(tmp, "kmers55")
+    run = drive(["-t", "kmer-counter", "-k", str(TRIPLE_K2), "-i", fq,
+                 "-o", kmers55, "--work-dir", os.path.join(tmp, "wdk55")])
+    check(run.launches == 0, f"kmer-counter -k {TRIPLE_K2} launched the "
+                             f"kernel {run.launches} times")
+    kbin55 = os.path.join(kmers55, "reads.kmers.bin")
+    say("triple-slice", f"kmer-counter -k {TRIPLE_K2}: "
+                        f"{os.path.getsize(kbin55) // 10} records; "
+                        f"{run.seconds:.3f} s ({card})")
+    bins, launches = {}, {}
+    for mode, env in (("host", {}), ("device", {"MC_DEVICE_CLASSIFY": "1"})):
+        out = os.path.join(tmp, f"triple_{mode}")
+        run = drive(["-t", "triple-reads-classifier", "-k", str(MAIN_K),
+                     "-k2", str(TRIPLE_K2), "-ik1", cls["kbin"],
+                     "-ik2", kbin55, "-r", cls["r1"], cls["r2"], "-o", out,
+                     "--work-dir", os.path.join(tmp, f"wdt_{mode}")], **env)
+        bins[mode] = tree(out)
+        launches[mode] = run.launches
+        t_pass2 = [t for t, m in run.log
+                   if m.startswith(f"Building graph with k = {TRIPLE_K2}")]
+        say("triple-slice", f"triple-reads-classifier ({mode} coverage): "
+                            f"{run.seconds:.3f} s (pass 1 ended at "
+                            f"{t_pass2[0]:.3f} s), "
+                            f"{2 * CLASSIFY_PAIRS / run.seconds:.0f} "
+                            f"classified reads/s, kernel launches "
+                            f"{run.launches} ({card})")
+    check(len(bins["host"]) == 9 and bins["host"] == bins["device"],
+          "the nine bins of the device triple run differ from the host run")
+    want = 4 * -(-CLASSIFY_PAIRS // CLASSIFY_BATCH)
+    check(launches["device"] == want and launches["host"] == 0,
+          f"triple launches: device {launches['device']} (want {want}), "
+          f"host {launches['host']} (want 0)")
+    share = found_shares(bins["host"], cls["mates"])
+    sizes = {n[:-6]: b.count(b"\n+\n") for n, b in sorted(bins["host"].items())}
+    say("triple-slice", f"nine bins byte-identical between host and device "
+                        f"coverage ({sizes}); device launches "
+                        f"{launches['device']} = 4 x ceil({CLASSIFY_PAIRS} / "
+                        f"{CLASSIFY_BATCH}) in pass 1, none at k2; found: "
+                        f"{share['A']:.4f} of the graph genomes' reads, "
+                        f"{share['B']:.4f} of the others'")
+    check(share["A"] >= 0.70 and share["B"] <= 0.01,
+          f"triple found shares A {share['A']:.4f} (want >= 0.70), "
+          f"B {share['B']:.4f} (want <= 0.01)")
+    return launches["device"]
+
+
+def split_fastq(src: str, paths: list[str]) -> list[int]:
+    """Deal the records of a FASTQ round-robin into len(paths) files;
+    returns the record count of each."""
+    with open(src, "rb") as fh:
+        lines = fh.read().split(b"\n")[:-1]
+    recs = np.array(lines, dtype=object).reshape(-1, 4)
+    sizes = []
+    for i, path in enumerate(paths):
+        part = recs[i::len(paths)]
+        sizes.append(part.shape[0])
+        with open(path, "wb") as fh:
+            fh.write(b"\n".join(part.ravel().tolist()) + b"\n")
+    return sizes
+
+
+def seq_cov_args(bins: list[str], seqs: str, out: str, wd: str) -> list[str]:
+    return ["-t", "seq-cov", "-k", str(MAIN_K), "--from-donor", bins[0],
+            "--from-before", bins[1], "--from-both", bins[2],
+            "--itself", bins[3], "-r", seqs, "-o", out, "--work-dir", wd]
+
+
+def phase_seq_cov(rng, fq: str, genes: str, small_fq: str,
+                  genomes_b: np.ndarray, tmp: str, card: str) -> int:
+    """Returns the kernel launches of the full-size run."""
+    small_seqs = os.path.join(tmp, "small_seqs.fasta")
+    with open(os.path.join(tmp, "small_genes.fasta")) as fh:
+        small_gene = fh.read()
+    with open(small_seqs, "w") as fh:
+        fh.write(small_gene + ">random\n" + "".join(
+            "AGCT"[c] for c in rng.integers(0, 4, 400)) + "\n")
+    csv = {}
+    for platform in ("cuda", "cpu"):
+        out = os.path.join(tmp, f"cov_small_{platform}")
+        drive(seq_cov_args([small_fq] * 4, small_seqs, out,
+                           os.path.join(tmp, f"wdcov_{platform}")),
+              MC_PLATFORM=platform)
+        csv[platform] = tree(out)
+    check(csv["cuda"] == csv["cpu"] and len(csv["cuda"]) == 1,
+          "seq-cov on CUDA differs from the CPU run")
+    say("seq-cov", "small seq_cov.csv byte-identical between cuda and cpu")
+    t0 = time.perf_counter()
+    bins = [os.path.join(tmp, f"cov_bin{i}.fastq") for i in range(4)]
+    sizes = split_fastq(fq, bins)
+    seqs = os.path.join(tmp, "cov_seqs.fasta")
+    with open(genes) as fh:
+        gene_text = fh.read()
+    pieces = [genomes_b[i, 100_000:101_500] for i in (0, 7, 13)]
+    with open(seqs, "w") as fh:
+        fh.write(gene_text + "".join(
+            f">other{i + 1}\n" + np.frombuffer(b"AGCT", np.uint8)[p]
+            .tobytes().decode() + "\n" for i, p in enumerate(pieces)))
+    say("seq-cov", f"four bins of the slice's reads and six sequences "
+                   f"written in {time.perf_counter() - t0:.1f} s")
+    out = os.path.join(tmp, "cov_full")
+    run = drive(seq_cov_args(bins, seqs, out, os.path.join(tmp, "wdcov")))
+    with open(os.path.join(out, "seq_cov.csv")) as fh:
+        rows = [ln.rstrip("\n").split(", ") for ln in fh][1:]
+    check(len(rows) == 6, f"seq_cov.csv holds {len(rows)} rows, want 6")
+    breadth = [[float(x) for x in r[2::2]] for r in rows]
+    # each bin holds a quarter of the reads (5x): about 0.95 expected
+    check(all(min(b) >= 0.75 for b in breadth[:3]),
+          f"gene breadths {breadth[:3]} (want >= 0.75 in every bin)")
+    check(all(max(b) == 0.0 for b in breadth[3:]),
+          f"other genomes' breadths {breadth[3:]} (want 0)")
+    batches = sum(-(-n // BATCH) for n in sizes)
+    check(run.launches == batches,
+          f"seq-cov launched the kernel {run.launches} times for {batches} "
+          f"batches")
+    say("seq-cov", f"seq-cov -k {MAIN_K} on four bins: {run.seconds:.3f} s, "
+                   f"kernel launches {run.launches}; breadth of the genes "
+                   f"{[min(b) for b in breadth[:3]]} (least over the bins), "
+                   f"of the other genomes' pieces "
+                   f"{[max(b) for b in breadth[3:]]} ({card})")
+    return run.launches
+
+
+def fmt_data(rng, tmp: str, scale: int, sub_rate: float
+             ) -> tuple[str, dict[str, str]]:
+    """Donor, before and after metagenomes from FMT_PARTS / scale (20x,
+    150 bp reads, `sub_rate` substitutions), the eight classified bins
+    (<stem>_{1,2,s}.fastq, reads dealt by origin) and three genes of the
+    after metagenome. Returns (bins dir, {name: path})."""
+    parts = {name: rng.integers(0, 4, (1, kbp * 1000 // scale)).astype(
+        np.int8) for name, kbp in FMT_PARTS.items()}
+
+    def reads_of(name: str) -> np.ndarray:
+        g = parts[name]
+        return sample_reads(rng, g, 20 * g.shape[1] // 150, 150, sub_rate)
+
+    metas = {"donor": ("settle", "not_settle", "shared"),
+             "before": ("stay", "gone", "shared"),
+             "after": ("settle", "stay", "shared", "new")}
+    bin_of = {("donor", "settle"): "settle",
+              ("donor", "not_settle"): "not_settle",
+              ("before", "stay"): "stay", ("before", "gone"): "gone",
+              ("after", "settle"): "came_from_donor",
+              ("after", "stay"): "came_from_baseline",
+              ("after", "shared"): "came_from_both",
+              ("after", "new"): "came_itself"}
+    root = os.path.join(tmp, f"fmt{scale}")
+    bins = os.path.join(root, "bins")
+    os.makedirs(bins)
+    paths = {}
+    for meta, names in metas.items():
+        sets = {name: reads_of(name) for name in names}
+        paths[meta] = os.path.join(root, f"{meta}.fastq")
+        write_fastq(paths[meta], np.concatenate(list(sets.values())))
+        for name, reads in sets.items():
+            stem = bin_of.get((meta, name))
+            if stem is not None:
+                for i, x in enumerate(("1", "2", "s")):
+                    write_fastq(os.path.join(bins, f"{stem}_{x}.fastq"),
+                                reads[i::3])
+    paths["genes"] = os.path.join(root, "genes.fasta")
+    write_genes(paths["genes"], [parts[n][0, 1000:1000 + 1500 // scale]
+                                 for n in ("settle", "stay", "new")])
+    return bins, paths
+
+
+def fmt_args(tool: str, k: int, bins: str, paths: dict[str, str], out: str,
+             wd: str) -> list[str]:
+    args = ["-t", tool, "-k", str(k), "-i", bins, "--ext", "fastq",
+            "-after", paths["after"], "-o", out, "--work-dir", wd]
+    if tool == "recipient-visualiser":
+        return args + ["--seq", paths["genes"]]
+    return args + ["-donor", paths["donor"], "-before", paths["before"]]
+
+
+def segments(gfa: bytes) -> list[tuple[str, str]]:
+    """(normalized sequence, color) of every S line of a GFA file."""
+    from metacherchant_tpu_torch.dna import normalize
+    out = []
+    for ln in gfa.decode().splitlines():
+        if ln.startswith("S\t"):
+            f = ln.split("\t")
+            out.append((normalize(f[2]), f[5][len("CL:Z:"):]))
+    return sorted(out)
+
+
+def phase_fmt(rng, tmp: str, card: str) -> tuple[int, int]:
+    """Returns the kernel launches of fmt-visualiser (device contraction)
+    and of recipient-visualiser."""
+    from collections import Counter
+    t0 = time.perf_counter()
+    bins, paths = fmt_data(rng, tmp, 1, 0.001)
+    say("fmt", f"data: {sum(FMT_PARTS.values())} kbp in 6 genomes; donor, "
+               f"before, after of 400 kbp at 20x (0.1% substitutions), 24 "
+               f"bin files; written in {time.perf_counter() - t0:.1f} s")
+    pics, launches = {}, {}
+    for mode, flag in (("host", "0"), ("device", "1")):
+        out = os.path.join(tmp, f"fmt_{mode}")
+        run = drive(fmt_args("fmt-visualiser", MAIN_K, bins, paths, out,
+                             os.path.join(tmp, f"wdf_{mode}")),
+                    MC_DEVICE_CONTRACT=flag)
+        pics[mode] = tree(out)
+        launches[mode] = run.launches
+        stamps = {m.split()[1]: t for t, m in run.log
+                  if m.startswith("Creating ") and m.endswith(" image ...")}
+        say("fmt", f"fmt-visualiser -k {MAIN_K} ({mode} contraction): "
+                   f"{run.seconds:.3f} s (images begin at "
+                   f"{', '.join(f'{n} {t:.3f} s' for n, t in stamps.items())}"
+                   f"), kernel launches {run.launches} ({card})")
+    check(sorted(pics["host"]) == sorted(pics["device"])
+          and len(pics["host"]) == 6, "fmt-visualiser output files differ")
+    for name in ("donor", "before", "after"):
+        host = segments(pics["host"][f"{name}.gfa"])
+        dev = segments(pics["device"][f"{name}.gfa"])
+        check(host == dev, f"{name}.gfa: the device contraction's unitigs "
+                           f"or colors differ from the host sweep's")
+        colors = Counter(c for _, c in host)
+        say("fmt", f"{name}.gfa: {len(host)} unitigs, the same set and "
+                   f"colors with either contraction; colors {dict(colors)}")
+    check(launches["host"] == launches["device"] > 0,
+          f"fmt-visualiser launches {launches}")
+    out = os.path.join(tmp, "recipient")
+    run = drive(fmt_args("recipient-visualiser", MAIN_K, bins, paths, out,
+                         os.path.join(tmp, "wdr")))
+    got = tree(out)
+    check(sorted(got) == sorted(f"after/comp_{i}{s}" for i in range(3)
+                                for s in (".gfa", "_seqs.fasta")),
+          f"recipient-visualiser wrote {sorted(got)}")
+    check(all(b"_start" in got[f"after/comp_{i}_seqs.fasta"]
+              for i in range(3)), "a recipient picture has no gene node")
+    recipient = run.launches
+    check(recipient > 0, "recipient-visualiser did not launch the kernel")
+    say("fmt", f"recipient-visualiser on 3 genes: "
+               f"{[len(segments(got[f'after/comp_{i}.gfa'])) for i in range(3)]}"
+               f" unitigs, {run.seconds:.3f} s, kernel launches "
+               f"{recipient} ({card})")
+    # error-free reads: fmt-visualizer's flood admits duplicates as the
+    # reference does, and their number doubles at every bubble that
+    # substitutions make along a component
+    bins, paths = fmt_data(rng, tmp, FMT_SMALL, 0.0)
+    for tool, k in (("fmt-visualizer", MAIN_K), ("fmt-visualiser", HASH_K)):
+        outs, secs = {}, {}
+        for platform in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"{tool}{k}_{platform}")
+            run = drive(fmt_args(tool, k, bins, paths, out,
+                                 os.path.join(tmp, f"wd{tool}{k}{platform}")),
+                        MC_PLATFORM=platform)
+            outs[platform], secs[platform] = tree(out), run.seconds
+        check(outs["cuda"] == outs["cpu"] and len(outs["cuda"]) >= 6,
+              f"{tool} -k {k} on CUDA differs from the CPU run")
+        say("fmt", f"{tool} -k {k} on the {400 // FMT_SMALL} kbp "
+                   f"metagenomes: {len(outs['cuda'])} files byte-identical "
+                   f"between cuda ({secs['cuda']:.3f} s) and cpu "
+                   f"({secs['cpu']:.3f} s)")
+    return launches["device"], recipient
 
 
 def timed(name: str, card: str, fn, *args):
@@ -634,9 +1054,15 @@ def main() -> int:
               small_fq, smi)
         hashed = timed("hashed-slice", smi, phase_hashed_slice, fq, genes,
                        tmp, smi)
-        counter, classify = timed("classify-slice", smi,
-                                  phase_classify_slice, rng, genomes, fq,
-                                  tmp, smi)
+        cls = timed("classify-slice", smi, phase_classify_slice, rng,
+                    genomes, fq, tmp, smi)
+        contract = timed("contract-ops", smi, phase_contract_ops, rng, tmp,
+                         small_fq, smi)
+        triple = timed("triple-slice", smi, phase_triple_slice, fq, cls, tmp,
+                       smi)
+        cov = timed("seq-cov", smi, phase_seq_cov, rng, fq, genes, small_fq,
+                    cls["genomes_b"], tmp, smi)
+        fmt, recipient = timed("fmt", smi, phase_fmt, rng, tmp, smi)
     print(json.dumps({"kernels": [{
         "name": "extract_append",
         "route": "cuda",
@@ -646,8 +1072,15 @@ def main() -> int:
         "launches_by_path": {
             f"environment-finder -k {MAIN_K}": launches,
             f"environment-finder -k {HASH_K} (hashed)": hashed,
-            f"kmer-counter -k {MAIN_K}": counter,
-            "reads-classifier MC_DEVICE_CLASSIFY=1": classify,
+            f"kmer-counter -k {MAIN_K}": cls["counter"],
+            "reads-classifier MC_DEVICE_CLASSIFY=1": cls["classify"],
+            f"triple-reads-classifier -k {MAIN_K} -k2 {TRIPLE_K2} "
+            "MC_DEVICE_CLASSIFY=1": triple,
+            f"seq-cov -k {MAIN_K}": cov,
+            f"fmt-visualiser -k {MAIN_K} MC_DEVICE_CONTRACT=1": fmt,
+            f"recipient-visualiser -k {MAIN_K}": recipient,
+            f"environment-finder -k {MAIN_K} MC_DEVICE_CONTRACT=1 (small)":
+                contract,
         },
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],

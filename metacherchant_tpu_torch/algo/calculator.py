@@ -13,7 +13,7 @@ import os
 from ..kmer_map import KmerMap
 from .environment import build_environment, Environment
 from .contraction import (build_node_graph, do_merge, gene_kmer_checker,
-                          refuse_device_contraction)
+                          use_device_contraction)
 from ..io.writers import (
     write_graph_txt, write_graph_txt_codes, write_seqs_fasta, write_gfa,
     write_tsvs)
@@ -70,12 +70,23 @@ def run_one_sequence(sequences: list[str], k: int, kmap: KmerMap,
 def create_picture(subgraph: dict[str, int], gene_sequences: list[str], k: int,
                    output_prefix: str, chunk_length: int) -> None:
     """createPicture (OneSequenceCalculator.java:326-339): build doubled-node
-    graph, contract on the host, emit seqs.fasta + graph.gfa + tsvs/."""
-    refuse_device_contraction()
+    graph, contract, emit seqs.fasta + graph.gfa + tsvs/.
+
+    The pointer-jumping contraction on the device of device.py
+    (ops/contraction_device.py) is opt-in, as in the JAX package:
+    MC_DEVICE_CONTRACT=1, or an explicit MC_DEVICE_CONTRACT_MIN
+    (use_device_contraction). It gives the same unitig SET as the host
+    sweep, but seqs.fasta/graph.gfa/tsv record ORDER and per-unitig strand
+    choice may differ; its files are byte-identical to the JAX package's
+    device route. MC_DEVICE_CONTRACT=0 keeps the host sweep at any size."""
     kmer_list = sorted(subgraph)
-    nodes = build_node_graph(kmer_list, k,
-                             is_gene=gene_kmer_checker(gene_sequences, k))
-    do_merge(nodes, k)
+    is_gene = gene_kmer_checker(gene_sequences, k)
+    if use_device_contraction(len(kmer_list), k):
+        from ..ops.contraction_device import contract_device
+        nodes = contract_device(kmer_list, k, tag_of=is_gene)
+    else:
+        nodes = build_node_graph(kmer_list, k, is_gene=is_gene)
+        do_merge(nodes, k)
     write_seqs_fasta(os.path.join(output_prefix, "seqs.fasta"), nodes, chunk_length)
     write_gfa(os.path.join(output_prefix, "graph.gfa"), nodes, k, subgraph)
     write_tsvs(os.path.join(output_prefix, "tsvs"), nodes, k)

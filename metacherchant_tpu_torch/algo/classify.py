@@ -241,6 +241,14 @@ def _interval_ok(cov_mean, width, lengths, z):
     return (width == 1) | ((width != 0) & (-std <= dev) & (dev <= std))
 
 
+def batch_widths(batch: ReadBatch, kmap: KmerMap, k: int,
+                 hasher: str | None) -> np.ndarray:
+    """getWidth (TripleFinder.java:64-70): breadth only; len<k -> 0."""
+    cov = _coverage(batch, kmap, k, hasher)
+    _, width, has = _coverage_stats(cov, batch.lengths, k)
+    return np.where(has, width, 0.0)
+
+
 def device_classify() -> bool:
     """MC_DEVICE_CLASSIFY switch: unset, "" and "0" are off (the JAX
     package takes any non-empty value, "0" included, as on)."""
@@ -346,3 +354,26 @@ class FoundStats:
         d = self.both_not_found * 2 + self.first_found + self.second_found
         return self.both_not_found * 2 / d * 100 if d else math.nan
 
+
+
+# triple-classifier verdicts (TripleReadsClassifier.FindResult:272-274)
+FOUND, HALF_FOUND, NOT_FOUND = 2, 1, 0
+
+
+def triple_verdict_pass1(found: np.ndarray, width: np.ndarray,
+                         half_threshold: float) -> np.ndarray:
+    """TripleFinder.run (src/algo/TripleFinder.java:47-60)."""
+    return np.where(found, FOUND,
+                    np.where(width >= half_threshold, HALF_FOUND, NOT_FOUND))
+
+
+def triple_verdict_pass2(found: np.ndarray, width2: np.ndarray,
+                         pass1: np.ndarray, half_threshold: float) -> np.ndarray:
+    """TripleFinder2.run combination (src/algo/TripleFinder2.java:63-80)."""
+    res = np.full(found.shape, NOT_FOUND, np.int32)
+    res[found & (pass1 == FOUND)] = FOUND
+    half = (~(found & (pass1 == FOUND))) & (
+        found | (pass1 == FOUND)
+        | ((width2 >= half_threshold) & (pass1 == HALF_FOUND)))
+    res[half] = HALF_FOUND
+    return res

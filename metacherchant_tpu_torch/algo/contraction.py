@@ -1,8 +1,8 @@
 """Unitig contraction over the doubled-node (k-mer, revcomp) graph.
 
-Carried over from metacherchant_tpu/algo/contraction.py (host; the JAX
-package's device contraction is not ported yet, and MC_DEVICE_CONTRACT
-raises). Faithful reimplementation of the reference's node model and merge loop
+Carried over from metacherchant_tpu/algo/contraction.py (host; the device
+contraction is ops/contraction_device.py, routed by use_device_contraction).
+Faithful reimplementation of the reference's node model and merge loop
 (src/algo/OneSequenceCalculator.java:312-324 mergeNodes, :387-419
 initializeStructures, :434-451 doMerge; node model src/algo/SingleNode.java):
 
@@ -12,8 +12,9 @@ initializeStructures, :434-451 doMerge; node model src/algo/SingleNode.java):
   whose (k-1)-prefix equals s; the rc-pair of the same overlap inserts the
   symmetric entry, so A in B.neighbors <=> B in A.neighbors
 - merge step: node n with exactly one neighbor m, m with exactly one neighbor,
-  and equal merge tag (isGeneNode): concatenate sequences with k-1 overlap
-  onto the surviving rc pair, delete n and m
+  and equal merge tag (isGeneNode; FMT adds color,
+  src/algo/SeqEnvCalculator.java:208-225): concatenate sequences with k-1
+  overlap onto the surviving rc pair, delete n and m
 - deleted nodes are never referenced by surviving single-neighbor nodes
   (invariant of the symmetric adjacency), and writers skip deleted nodes
 
@@ -24,7 +25,7 @@ Golden comparisons are content-based (sequence sets / topology), not id-based.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Callable, Hashable, Iterable
 
 from ..dna import reverse_complement
 
@@ -76,18 +77,20 @@ class Node:
         self.neighbors: list["Node"] = []
         self.deleted = False
         self.is_gene = is_gene
-        self.color = color  # GFA CL tag: GREEN for gene nodes
+        self.color = color  # GFA CL tag: GREEN for gene nodes, or FMT colors
 
     def min_id(self) -> int:
         return min(self.id, self.rc.id)
 
 
 def build_node_graph(kmers: Iterable[str], k: int,
-                     is_gene: Callable[[str, str], bool] | None = None
+                     is_gene: Callable[[str, str], bool] | None = None,
+                     color_of: Callable[[str], str | None] | None = None
                      ) -> list[Node]:
     """initializeStructures (OneSequenceCalculator.java:387-419): two nodes per
     canonical k-mer + (k-1)-prefix index adjacency. `kmers` iteration order
-    defines ids."""
+    defines ids. Colors come from color_of when given, else GREEN for gene
+    nodes."""
     kmer_list = kmers if isinstance(kmers, list) else list(kmers)
     n = len(kmer_list)
     rcs = _bulk_reverse_complement(kmer_list, k)
@@ -98,11 +101,12 @@ def build_node_graph(kmers: Iterable[str], k: int,
     with _gc_suspended():
         genes = ([bool(is_gene(s, r)) for s, r in zip(kmer_list, rcs)]
                  if is_gene else [False] * n)
+        colors = ([color_of(s) for s in kmer_list] if color_of
+                  else ["GREEN" if g else None for g in genes])
         nodes: list[Node] = []
         append = nodes.append
         nid = 0
-        for seq, rc, gene in zip(kmer_list, rcs, genes):
-            color = "GREEN" if gene else None
+        for seq, rc, gene, color in zip(kmer_list, rcs, genes, colors):
             a = Node(seq, nid, gene, color)
             b = Node(rc, nid + 1, gene, color)
             a.rc = b
@@ -205,6 +209,10 @@ def _bulk_reverse_complement(kmer_list: list[str], k: int) -> list[str]:
     return [big[i:i + k] for i in range(0, n * k, k)]
 
 
+def _default_tag(n: Node) -> Hashable:
+    return n.is_gene
+
+
 def merge_nodes(first_plus: Node, second_minus: Node, k: int) -> None:
     """mergeNodes (OneSequenceCalculator.java:312-324)."""
     first_minus, second_plus = first_plus.rc, second_minus.rc
@@ -219,7 +227,8 @@ def merge_nodes(first_plus: Node, second_minus: Node, k: int) -> None:
     first_plus.deleted = second_minus.deleted = True
 
 
-def do_merge(nodes: list[Node], k: int) -> None:
+def do_merge(nodes: list[Node], k: int,
+             tag: Callable[[Node], Hashable] = _default_tag) -> None:
     """doMerge exactly as written (OneSequenceCalculator.java:434-451):
     full sweeps to fixpoint, ascending node order.
 
@@ -241,14 +250,17 @@ def do_merge(nodes: list[Node], k: int) -> None:
     tests/test_contraction.py, including degenerate graphs and the
     fmt/multi tag shapes) at O(candidates) per sweep.
 
-    The merge tag, is_gene, is merge-invariant, so every live candidate
-    merges on its first visit and the while-loop settles after one acting
-    sweep plus one empty confirmation sweep (the reference's fixpoint
-    structure, kept verbatim)."""
+    CONTRACT: `tag` must read only merge-invariant attributes (is_gene,
+    color -- as every caller does). A tag reading `seq`, `rc` or `deleted`
+    would be re-evaluated at visit time by the reference loop but is frozen
+    at entry here. Under this contract every live candidate merges on its
+    first visit, so the while-loop settles after one acting sweep plus one
+    empty confirmation sweep (the reference's fixpoint structure, kept
+    verbatim)."""
     candidates = [n for n in nodes
                   if len(n.neighbors) == 1
                   and len(n.neighbors[0].neighbors) == 1
-                  and n.is_gene == n.neighbors[0].is_gene]
+                  and tag(n) == tag(n.neighbors[0])]
     # suspend the cyclic GC across the merge storm (string churn triggers
     # full collections that find nothing among the long-lived
     # mutually-referencing nodes; see _gc_suspended)
@@ -264,6 +276,10 @@ def do_merge(nodes: list[Node], k: int) -> None:
                 return
 
 
+def alive(nodes: list[Node]) -> list[Node]:
+    return [n for n in nodes if not n.deleted]
+
+
 def gene_kmer_checker(gene_seqs: list[str], k: int) -> Callable[[str, str], bool]:
     """isGeneNode (OneSequenceCalculator.java:421-432): the gene sequence
     contains the k-mer or its rc as a substring. At graph-build time node
@@ -277,12 +293,17 @@ def gene_kmer_checker(gene_seqs: list[str], k: int) -> Callable[[str, str], bool
     return check
 
 
-def refuse_device_contraction() -> None:
-    """The JAX package's device contraction (ops/contraction_device.py) is
-    not ported: a request for it is an error, not a silent host run."""
+def use_device_contraction(n_kmers: int, k: int) -> bool:
+    """Device-contraction routing of the per-gene and FMT pictures, as the
+    JAX package routes: MC_DEVICE_CONTRACT=1 forces the device route and
+    "0" the host sweep; otherwise MC_DEVICE_CONTRACT_MIN, when set, routes
+    pictures of at least that many k-mers to the device. Only odd k <= 31
+    is eligible; every other value of the switch takes the host sweep."""
     import os
-    if (os.environ.get("MC_DEVICE_CONTRACT") not in (None, "", "0")
-            or os.environ.get("MC_DEVICE_CONTRACT_MIN")):
-        raise NotImplementedError(
-            "device contraction not yet ported; unset MC_DEVICE_CONTRACT and "
-            "MC_DEVICE_CONTRACT_MIN")
+    flag = os.environ.get("MC_DEVICE_CONTRACT")
+    eligible = k % 2 == 1 and k <= 31
+    auto_min_env = os.environ.get("MC_DEVICE_CONTRACT_MIN")
+    auto_min = int(auto_min_env) if auto_min_env else None
+    return eligible and (
+        flag == "1" or (flag != "0" and auto_min is not None
+                        and n_kmers >= auto_min))

@@ -6,7 +6,8 @@ exact (k <= 31) and hashed (k > 31 or --forcehash, src/io/LargeKIOUtils.java
 code batches (native parser + vectorized chunking, or the Python readers),
 moved to the device, and counted by ops/sortcount.StreamCounter. Long
 fragments are chunked with k-1 overlap so every window is counted once.
-count_kmers_host and seed_keys_of_sequence are the host oracles.
+count_kmers_host and seed_keys_of_sequence are the host oracles;
+load_present_kmer_strings recovers the strings of a hashed map.
 """
 from __future__ import annotations
 
@@ -224,6 +225,54 @@ def _count_codes_into(counts: dict[int, int], codes: np.ndarray, k: int,
         if i >= k - 1:
             key = min(fw, rc)
             counts[key] = counts.get(key, 0) + 1
+
+
+def load_present_kmer_strings(files: Iterable[str], k: int, hasher: str,
+                              kmap: KmerMap, min_len: int = 0,
+                              rows_per_batch: int = 1 << 20) -> dict[str, int]:
+    """LargeKmerLoader equivalent (src/io/LargeKmerLoader.java:47-76): in the
+    hashed regime map keys cannot be decoded back to strings, so re-stream the
+    reads and materialize normalized-string -> count for every k-window whose
+    canonical hash is present in kmap.
+
+    Hashing is the host's vectorized hash_codes_np (exact Java wrap) over
+    ~1M-window blocks; presence is one probe-table lookup per block.
+    """
+    from .dna import CODE_TO_CHAR
+    from .algo.environment_hashed import _normalize_rows
+
+    out: dict[str, int] = {}
+    buf: list[np.ndarray] = []
+    buffered = 0
+
+    def flush():
+        nonlocal buffered
+        if not buf:
+            return
+        rows = np.concatenate(buf, axis=0)
+        buf.clear()
+        buffered = 0
+        counts = kmap.get_many(hash_codes_np(rows, hasher))
+        present = counts >= 0
+        if not present.any():
+            return
+        rows, counts = rows[present], counts[present]
+        norm = _normalize_rows(rows)
+        chars = CODE_TO_CHAR[norm.astype(np.int64)]
+        # dedup within the block before the python dict loop
+        uniq, idx = np.unique(chars, axis=0, return_index=True)
+        for row, c in zip(uniq, counts[idx]):
+            out[row.tobytes().decode("ascii")] = int(c)
+
+    for frag in iter_fragments(files, k, min_len, max_len=1 << 30):
+        wins = np.lib.stride_tricks.sliding_window_view(
+            np.asarray(frag, np.uint8), k)
+        buf.append(wins)
+        buffered += wins.shape[0]
+        if buffered >= rows_per_batch:
+            flush()
+    flush()
+    return out
 
 
 def seed_keys_of_sequence(seq: str, k: int, hasher: str | None) -> np.ndarray:

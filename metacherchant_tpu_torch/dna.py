@@ -41,6 +41,11 @@ def encode(seq: str) -> np.ndarray:
     return CHAR_TO_CODE[raw]
 
 
+def decode(codes: np.ndarray) -> str:
+    """int8 code array -> string (codes must be in 0..3)."""
+    return CODE_TO_CHAR[np.asarray(codes, dtype=np.int64)].tobytes().decode("ascii")
+
+
 def reverse_complement(seq: str) -> str:
     """Reverse complement of an ACGT string (itmo:dna/DnaTools.java:139-145)."""
     return seq.translate(_COMPLEMENT_TRANS)[::-1]
@@ -58,6 +63,14 @@ def kmer_to_code(kmer: str) -> int:
     for ch in kmer:
         res = (res << 2) | int(CHAR_TO_CODE[ord(ch)])
     return res
+
+
+def code_to_kmer(code: int, k: int) -> str:
+    """Inverse of kmer_to_code (itmo:utils/KmerUtils.java:50-57)."""
+    out = []
+    for i in range(k - 1, -1, -1):
+        out.append(NUCLEOTIDES[(code >> (2 * i)) & 3])
+    return "".join(out)
 
 
 def revcomp_code(code: int, k: int) -> int:

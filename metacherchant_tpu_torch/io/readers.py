@@ -81,6 +81,10 @@ class DnaQ:
     def __len__(self) -> int:
         return len(self.codes)
 
+    def to_string(self) -> str:
+        from ..dna import decode
+        return decode(self.codes)
+
     @staticmethod
     def from_string(seq: str, phred: int = 0) -> "DnaQ":
         codes = CHAR_TO_CODE[np.frombuffer(seq.encode("ascii"), np.uint8)].copy()

@@ -132,6 +132,12 @@ class KmerMap:
             slot[active] = (slot[active] + 1) & mask
         return out.reshape(query.shape)
 
+    def get(self, key: int) -> int:
+        return int(self.get_many(np.array([key], np.int64))[0])
+
+    def contains(self, query: np.ndarray) -> np.ndarray:
+        return self.get_many(query) >= 0
+
     def oriented_dict(self, k: int) -> dict[int, int]:
         """Both orientations of every (exact-regime) canonical key -> count.
 

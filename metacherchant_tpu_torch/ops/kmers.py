@@ -195,6 +195,15 @@ def codes_matrix_of_kmer_strings(kmers: list[str], k: int) -> np.ndarray:
     return CHAR_TO_CODE[raw].reshape(len(kmers), k)
 
 
+def fw_codes_of_kmer_strings(kmers: list[str], k: int) -> np.ndarray:
+    """Vectorized kmer_to_code over N strings: 2-bit packed forward codes."""
+    if not kmers:
+        return np.empty(0, np.int64)
+    codes = codes_matrix_of_kmer_strings(kmers, k).astype(np.uint64)
+    shifts = (2 * (k - 1 - np.arange(k))).astype(np.uint64)
+    return (codes << shifts[None, :]).sum(axis=1, dtype=np.uint64).view(np.int64)
+
+
 def keys_of_kmer_strings(kmers: list[str], k: int, hasher: str | None
                          ) -> np.ndarray:
     """Vectorized hash_str over N equal-length plain-ACGT k-mer strings:

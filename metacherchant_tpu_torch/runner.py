@@ -14,10 +14,17 @@ from .tool import Tool
 
 def _registry() -> dict[str, type[Tool]]:
     from .tools.environment_finder import EnvironmentFinderMain
+    from .tools.fmt_visualiser import FMTVisualiser
+    from .tools.fmt_visualizer import FMTVisualizer
     from .tools.kmer_counter import KmersCounter
     from .tools.reads_classifier import ReadsClassifier
+    from .tools.recipient_visualiser import RecipientVisualiser
+    from .tools.seq_cov import SequenceCoverage
+    from .tools.triple_reads_classifier import TripleReadsClassifier
     return {cls.NAME: cls for cls in
-            (EnvironmentFinderMain, KmersCounter, ReadsClassifier)}
+            (EnvironmentFinderMain, KmersCounter, ReadsClassifier,
+             TripleReadsClassifier, SequenceCoverage, FMTVisualiser,
+             FMTVisualizer, RecipientVisualiser)}
 
 
 DEFAULT_TOOL = "environment-finder"

@@ -492,3 +492,163 @@ def test_classify_pool_builds_only_the_lookup_it_probes(
     assert set(seen) == {(not on_device, on_device)}
     assert hasattr(kmap, "_ptable") != on_device
     assert bool(kmap._device) == on_device
+
+
+# ---------------------------------------------------------------------------
+# triple-reads-classifier and seq-cov
+# ---------------------------------------------------------------------------
+
+TRIPLE_BINS = tuple(f"{v}_{x}" for v in ("found", "half_found", "not_found")
+                    for x in ("1", "2", "s"))
+
+
+@pytest.mark.parametrize("device_classify", ["", "1"], ids=["host", "device"])
+@pytest.mark.parametrize("k,hasher", [(15, None), (33, "poly"),
+                                      (21, "fnv1a")])
+def test_triple_helpers_match_jax(k, hasher, device_classify, monkeypatch):
+    monkeypatch.setenv("MC_PLATFORM", "cpu")
+    jm, tm, jb, tb = _classify_setup(k, hasher)
+    monkeypatch.delenv("MC_DEVICE_CLASSIFY", raising=False)
+    want = JC.batch_widths(jb, jm, k, hasher)
+    monkeypatch.setenv("MC_DEVICE_CLASSIFY", device_classify)
+    got = TC.batch_widths(tb, tm, k, hasher)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert (TC.FOUND, TC.HALF_FOUND, TC.NOT_FOUND) == \
+        (JC.FOUND, JC.HALF_FOUND, JC.NOT_FOUND)
+    rng = np.random.default_rng(k)
+    found = TC.find_reads(tb, tm, k, hasher, 1.0, 0.9)
+    for half in (0.4, 0.7):
+        p1 = TC.triple_verdict_pass1(found, got, half)
+        assert np.array_equal(p1, JC.triple_verdict_pass1(found, got, half))
+        assert set(p1.tolist()) == {0, 1, 2}
+        pass1 = rng.integers(0, 3, found.size).astype(np.int8)
+        p2 = TC.triple_verdict_pass2(found, got, pass1, half)
+        want2 = JC.triple_verdict_pass2(found, got, pass1, half)
+        assert p2.dtype == want2.dtype and np.array_equal(p2, want2)
+
+
+@pytest.fixture(scope="module")
+def triple_graphs(metagenomes, tmp_path_factory):
+    """kmers.bin dumps of the graph reads at k = 21 and 33, written by the
+    JAX kmer-counter."""
+    tmp = tmp_path_factory.mktemp("triple_graphs")
+    dumps = {}
+    for k in (21, 33):
+        assert jax_main(["-t", "kmer-counter", "-k", str(k),
+                         "-i", str(metagenomes / "graph.fastq"),
+                         "-o", str(tmp / f"k{k}"),
+                         "--work-dir", str(tmp / f"w{k}")]) == 0
+        dumps[k] = str(tmp / f"k{k}" / "graph.kmers.bin")
+    return dumps
+
+
+@pytest.mark.parametrize("source,extra,single", [
+    ("reads", (), False), ("bins", (), False), ("reads", (), True),
+    ("bins", ("--correction", "--interval95", "--half-threshold", "30"),
+     False),
+], ids=["reads", "bins", "reads-single", "bins-correction-interval95"])
+@pytest.mark.parametrize("device_classify", ["", "1"], ids=["host", "device"])
+def test_triple_reads_classifier_byte_identical_to_jax(
+        metagenomes, triple_graphs, source, extra, single, device_classify,
+        tmp_path, monkeypatch):
+    """k = 21 then k2 = 33 (the hashed regime); graphs from the reads (-i)
+    or from kmers.bin dumps (-ik1, -ik2). The JAX side classifies on the
+    host, the port by default and under MC_DEVICE_CLASSIFY."""
+    monkeypatch.setenv("MC_PLATFORM", "cpu")
+    reads = [str(metagenomes / "r1.fastq")]
+    if not single:
+        reads.append(str(metagenomes / "r2.fastq"))
+    if source == "reads":
+        graph = ["-i", str(metagenomes / "graph.fastq")]
+    else:
+        graph = ["-ik1", triple_graphs[21], "-ik2", triple_graphs[33]]
+    for main, tag, dc in ((jax_main, "j", ""),
+                          (port_main, "t", device_classify)):
+        monkeypatch.setenv("MC_DEVICE_CLASSIFY", dc)
+        assert main(["-t", "triple-reads-classifier", "-k", "21",
+                     "-k2", "33", *graph, "-r", *reads,
+                     "-o", str(tmp_path / f"o{tag}"),
+                     "--work-dir", str(tmp_path / f"w{tag}"), *extra]) == 0
+    got, want = _tree(tmp_path / "ot"), _tree(tmp_path / "oj")
+    assert sorted(got) == sorted(f"{b}.fastq" for b in TRIPLE_BINS)
+    assert got == want
+    assert _stats(tmp_path / "wt") == _stats(tmp_path / "wj")
+    for b in ("found_1", "not_found_1", "found_s", "not_found_s"):
+        if not single or b.endswith("_s"):
+            assert got[f"{b}.fastq"].count(b"\n+\n") >= 3, b
+
+
+def test_triple_reads_classifier_refuses_k2_not_above_k(metagenomes,
+                                                         tmp_path,
+                                                         monkeypatch):
+    monkeypatch.setenv("MC_PLATFORM", "cpu")
+    assert port_main(["-t", "triple-reads-classifier", "-k", "31",
+                      "-k2", "31", "-i", str(metagenomes / "graph.fastq"),
+                      "-r", str(metagenomes / "r1.fastq"),
+                      "--work-dir", str(tmp_path / "wd")]) == 1
+    with open(tmp_path / "wd" / "log") as fh:
+        assert "k2 should be greater than k" in fh.read()
+
+
+def _seq_cov_inputs(metagenomes, tmp_path) -> tuple[list[str], str]:
+    """Four bins (graph reads, r1, r2, and the graph reads again) and
+    sequences: pieces of the graph reads, a random one, one with an N, and
+    sequences of every length from 0 to 15."""
+    rng = np.random.default_rng(13)
+    with open(metagenomes / "graph.fastq") as fh:
+        graph_reads = fh.read().splitlines()[1::4]
+    seqs = [graph_reads[1], graph_reads[5][:70] + graph_reads[9],
+            "".join(rng.choice(list("ACGT"), 90)),
+            graph_reads[3][:40] + "N" + graph_reads[3][41:]]
+    seqs += ["".join(rng.choice(list("ACGT"), n)) for n in range(16)]
+    path = tmp_path / "seqs.fasta"
+    path.write_text("".join(f">s{i}\n{s}\n" for i, s in enumerate(seqs)))
+    bins = [str(metagenomes / f) for f in ("graph.fastq", "r1.fastq",
+                                           "r2.fastq", "graph.fastq")]
+    return bins, str(path)
+
+
+def _seq_cov_args(bins, seqs, k, out, wd, *extra) -> list[str]:
+    return ["-t", "seq-cov", "-k", str(k), "--from-donor", bins[0],
+            "--from-before", bins[1], "--from-both", bins[2],
+            "--itself", bins[3], "-r", seqs, "-o", str(out),
+            "--work-dir", str(wd), *extra]
+
+
+@pytest.mark.parametrize("k,extra", [(21, ()), (33, ()),
+                                     (33, ("--hash", "fnv1a"))],
+                         ids=["k21", "k33", "k33-fnv1a"])
+def test_seq_cov_byte_identical_to_jax(metagenomes, k, extra, tmp_path,
+                                       monkeypatch):
+    """Sequences shorter than k - 1 write -0.0, as the JAX package does."""
+    monkeypatch.setenv("MC_PLATFORM", "cpu")
+    bins, seqs = _seq_cov_inputs(metagenomes, tmp_path)
+    for main, tag in ((jax_main, "j"), (port_main, "t")):
+        assert main(_seq_cov_args(bins, seqs, k, tmp_path / f"o{tag}",
+                                  tmp_path / f"w{tag}", *extra)) == 0
+    got, want = _tree(tmp_path / "ot"), _tree(tmp_path / "oj")
+    assert list(got) == ["seq_cov.csv"] and got == want
+    lines = got["seq_cov.csv"].decode().splitlines()
+    assert len(lines) == 1 + 4 + 16
+    assert float(lines[1].split(", ")[2]) > 0.9   # a graph read, in donor
+    assert lines[-1].endswith(", -0.0")            # 15 bases < k - 1
+
+
+@pytest.mark.parametrize("k", [21, 33])
+def test_seq_cov_k_minus_one_fails_like_jax(metagenomes, k, tmp_path,
+                                            monkeypatch):
+    """A sequence of k - 1 bases: printSeqBin divides by len - k + 1 = 0.
+    The Java reference prints NaN; the JAX package raises
+    ZeroDivisionError, and so does the port."""
+    monkeypatch.setenv("MC_PLATFORM", "cpu")
+    bins, _ = _seq_cov_inputs(metagenomes, tmp_path)
+    seqs = tmp_path / "short.fasta"
+    seqs.write_text(f">ok\n{'ACGT' * 10}\n>short\n{'ACGT' * 10}"[:-(41 - k)]
+                    + "\n")
+    assert len(seqs.read_text().splitlines()[-1]) == k - 1
+    for main, tag in ((jax_main, "j"), (port_main, "t")):
+        with pytest.raises(ZeroDivisionError):
+            main(_seq_cov_args(bins, str(seqs), k, tmp_path / f"o{tag}",
+                               tmp_path / f"w{tag}"))
+    assert (tmp_path / "ot" / "seq_cov.csv").read_bytes() == \
+        (tmp_path / "oj" / "seq_cov.csv").read_bytes()

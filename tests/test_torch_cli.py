@@ -137,13 +137,39 @@ def test_continue_skips_finished_run(recipe, tmp_path, monkeypatch):
     assert "already done, skipping" in _log(tmp_path / "wd")
 
 
+@pytest.mark.parametrize("data,k,extra,env", [
+    ("recipe", 21, (), {"MC_DEVICE_CONTRACT": "1"}),
+    ("recipe", 31, ("--bothdirs",), {"MC_DEVICE_CONTRACT": "1"}),
+    ("recipe", 25, ("--merge", "--maxkmers", "60", "--chunklength", "30"),
+     {"MC_DEVICE_CONTRACT": "1"}),
+    ("recipe", 21, (), {"MC_DEVICE_CONTRACT_MIN": "10"}),
+    ("long_recipe", 55, (), {"MC_DEVICE_CONTRACT": "1"}),
+], ids=["device-contract", "k31-bothdirs", "k25-merge-maxkmers",
+        "auto-min", "k55-host-route"])
+def test_device_contract_byte_identical_to_jax(data, k, extra, env, tmp_path,
+                                               request, monkeypatch):
+    """environment-finder with the device contraction (on the CPU here)
+    against the JAX package under the same switch; at k = 55 both take the
+    host sweep."""
+    monkeypatch.setenv("MC_PLATFORM", "cpu")
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    recipe = request.getfixturevalue(data)
+    assert jax_main(_args(recipe, k, tmp_path / "oj", tmp_path / "wj",
+                          *extra)) == 0
+    assert port_main(_args(recipe, k, tmp_path / "ot", tmp_path / "wt",
+                           *extra)) == 0
+    got, want = _tree(tmp_path / "ot"), _tree(tmp_path / "oj")
+    assert sorted(got) == sorted(want) and len(got) >= 5
+    for name in want:
+        assert got[name] == want[name], name
+
+
 @pytest.mark.parametrize("k,extra,env", [
     (21, (), {"MC_DEVICE_BFS": "1"}),
     (55, (), {"MC_DEVICE_BFS": "1"}),
-    (21, (), {"MC_DEVICE_CONTRACT": "1"}),
     (21, (), {"MC_COUNT_ENGINE": "hash"}),
-], ids=["device-bfs", "device-bfs-hashed", "device-contract",
-        "hash-engine"])
+], ids=["device-bfs", "device-bfs-hashed", "hash-engine"])
 def test_unported_paths_fail_clearly(recipe, k, extra, env, tmp_path,
                                      monkeypatch):
     monkeypatch.setenv("MC_PLATFORM", "cpu")
@@ -161,23 +187,42 @@ def test_unknown_tool(capsys):
     assert "Unknown tool" in capsys.readouterr().err
 
 
+_FMT_STEMS = ("settle", "not_settle", "stay", "gone", "came_from_donor",
+              "came_from_baseline", "came_from_both", "came_itself")
+
+
 @pytest.mark.parametrize("tool", ["environment-finder", "kmer-counter",
-                                  "reads-classifier"])
+                                  "reads-classifier",
+                                  "triple-reads-classifier", "seq-cov",
+                                  "fmt-visualiser", "fmt-visualizer",
+                                  "recipient-visualiser"])
 def test_cuda_without_gpu_fails_clearly(recipe, tool, tmp_path, monkeypatch):
     """MC_PLATFORM=cuda where torch sees no GPU: rc 1 and the reason in the
     log, never a silent run on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible")
     monkeypatch.setenv("MC_PLATFORM", "cuda")
-    reads, _ = recipe
+    reads, genes = recipe
+    bins = tmp_path / "bins"
+    bins.mkdir()
+    for stem in _FMT_STEMS:
+        for x in ("1", "2", "s"):
+            (bins / f"{stem}_{x}.fastq").write_text(open(reads).read())
+    out = ["-o", str(tmp_path / "out"), "--work-dir", str(tmp_path / "wd")]
+    fmt = ["-k", "21", "-i", str(bins), "--ext", "fastq", "-after", reads,
+           *out]
     args = {"environment-finder": _args(recipe, 21, tmp_path / "out",
                                         tmp_path / "wd")[2:],
-            "kmer-counter": ["-k", "21", "-i", reads, "-o",
-                             str(tmp_path / "out"),
-                             "--work-dir", str(tmp_path / "wd")],
-            "reads-classifier": ["-k", "21", "-i", reads, "-r", reads,
-                                 "-o", str(tmp_path / "out"),
-                                 "--work-dir", str(tmp_path / "wd")]}[tool]
+            "kmer-counter": ["-k", "21", "-i", reads, *out],
+            "reads-classifier": ["-k", "21", "-i", reads, "-r", reads, *out],
+            "triple-reads-classifier": ["-k", "21", "-k2", "33", "-i", reads,
+                                        "-r", reads, *out],
+            "seq-cov": ["-k", "21", "--from-donor", reads, "--from-before",
+                        reads, "--from-both", reads, "--itself", reads,
+                        "-r", genes, *out],
+            "fmt-visualiser": ["-donor", reads, "-before", reads, *fmt],
+            "fmt-visualizer": ["-donor", reads, "-before", reads, *fmt],
+            "recipient-visualiser": ["--seq", genes, *fmt]}[tool]
     assert port_main(["-t", tool, *args]) == 1
     assert "no CUDA device" in _log(tmp_path / "wd")
     assert not os.path.exists(tmp_path / "wd" / "SUCCESS")

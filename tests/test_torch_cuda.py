@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA GPU: the extraction kernel against its
-plain torch version on the card, the hashed keys and the map lookup on the
-card against the CPU, the device classify coverage against the host one, and
+plain torch version on the card, the hashed keys, the map lookup and the
+device contraction on the card against the CPU, the device classify coverage
+against the host one (reads-classifier's and triple-reads-classifier's), and
 the main path on the card against the host oracle and against the same run
 on the CPU.
 
@@ -23,8 +24,13 @@ from metacherchant_tpu_torch.counting import (count_kmers_device,
                                               count_kmers_host)
 from metacherchant_tpu_torch.io.readers import DnaQ
 from metacherchant_tpu_torch.kmer_map import KmerMap
+from metacherchant_tpu_torch.dna import normalize
 from metacherchant_tpu_torch.ops import extract_cuda
-from metacherchant_tpu_torch.ops.kmers import SENTINEL, hash_canonical_kmers
+from metacherchant_tpu_torch.ops.contraction_device import (
+    contract_codes_device)
+from metacherchant_tpu_torch.ops.kmers import (SENTINEL,
+                                               fw_codes_of_kmer_strings,
+                                               hash_canonical_kmers)
 from metacherchant_tpu_torch.ops.sortcount import append_codes
 from metacherchant_tpu_torch.runner import main as port_main
 
@@ -195,3 +201,77 @@ def test_device_coverage_on_card_matches_host(cuda, k, hasher, tmp_path,
     want = classify._coverage(batch, counted, k, hasher)
     assert got.dtype == want.dtype and np.array_equal(got, want)
     assert (want > 0).any()
+
+
+@pytest.mark.parametrize("k", [21, 31])
+def test_contract_codes_on_card_matches_cpu(cuda, k):
+    """A 20 kbp genome's k-mers in three color blocks, a cycle, a
+    self-loop."""
+    rng = np.random.default_rng(k)
+    genome = "".join(rng.choice(list("ACGT"), 20_000))
+    circ = "".join(rng.choice(list("ACGT"), 300))
+    tag_of = {}
+    for tag, seq in enumerate((genome[:8000], genome[8000 - k + 1:],
+                               circ + circ[:k - 1], "A" * 40)):
+        for i in range(len(seq) - k + 1):
+            tag_of.setdefault(normalize(seq[i:i + k]), tag % 3)
+    kmers = sorted(tag_of)
+    codes = torch.from_numpy(fw_codes_of_kmer_strings(kmers, k))
+    tags = torch.tensor([tag_of[s] for s in kmers], dtype=torch.int32)
+    got = contract_codes_device(codes.to(cuda), tags.to(cuda), k)
+    want = contract_codes_device(codes, tags, k)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+    assert int(want[3].max()) > 100
+
+
+def test_triple_classifier_device_coverage_on_card_matches_host(
+        cuda, tmp_path, monkeypatch):
+    graph = str(tmp_path / "graph.fastq")
+    _write_fastq(graph, 4)
+    r1, r2 = str(tmp_path / "r1.fastq"), str(tmp_path / "r2.fastq")
+    _write_fastq(r1, 4, 900)
+    _write_fastq(r2, 5, 700)
+    monkeypatch.setenv("MC_PLATFORM", "cuda")
+    trees, launches = {}, {}
+    for mode in ("", "1"):
+        monkeypatch.setenv("MC_DEVICE_CLASSIFY", mode)
+        out = tmp_path / f"out{mode}"
+        before = extract_cuda.LAUNCHES
+        assert port_main(["-t", "triple-reads-classifier", "-k", "21",
+                          "-k2", "33", "-i", graph, "-r", r1, r2,
+                          "-o", str(out),
+                          "--work-dir", str(tmp_path / f"wd{mode}")]) == 0
+        launches[mode] = extract_cuda.LAUNCHES - before
+        trees[mode] = {n: (out / n).read_bytes() for n in os.listdir(out)}
+    assert len(trees[""]) == 9 and trees["1"] == trees[""]
+    # r1 comes from the graph's genome, r2 from another one
+    assert trees[""]["found_s.fastq"] and trees[""]["not_found_s.fastq"]
+    # counting at 21 (one batch each run); the device run adds four per
+    # batch pair of pass 1 (find_reads and batch_widths of both mates), and
+    # none at 33
+    assert launches[""] == 1 and launches["1"] == 1 + 4
+
+
+def test_device_contract_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    reads = str(tmp_path / "reads.fastq")
+    _write_fastq(reads, 6)
+    genes = tmp_path / "genes.fasta"
+    with open(reads) as fh:
+        fh.readline()
+        seq = fh.readline().strip()
+    genes.write_text(f">g1\n{seq.replace('N', 'A')}\n")
+    monkeypatch.setenv("MC_DEVICE_CONTRACT", "1")
+    trees = {}
+    for platform in ("cuda", "cpu"):
+        monkeypatch.setenv("MC_PLATFORM", platform)
+        out = tmp_path / f"out_{platform}"
+        assert port_main(["-t", "environment-finder", "-k", "31",
+                          "-i", reads, "--seq", str(genes), "-o", str(out),
+                          "--coverage", "2", "--maxradius", "300",
+                          "--work-dir", str(tmp_path / f"wd_{platform}")]) == 0
+        trees[platform] = {
+            os.path.relpath(os.path.join(d, n), out): Path(d, n).read_bytes()
+            for d, _, names in os.walk(out) for n in names}
+    assert trees["cuda"] and trees["cuda"] == trees["cpu"]

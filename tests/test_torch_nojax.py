@@ -76,3 +76,39 @@ def test_classifier_tools_run_without_jax(tmp_path):
          env={"MC_DEVICE_CLASSIFY": "1"})
     assert (kmers / "reads.stat.txt").stat().st_size > 0
     assert (out / "found_s.fastq").read_text().count("\n+\n") == 500
+
+
+def test_triple_seq_cov_and_fmt_tools_run_without_jax(tmp_path):
+    """triple-reads-classifier (device coverage), seq-cov, fmt-visualiser
+    (device contraction), fmt-visualizer and recipient-visualiser, with the
+    recipe's reads as every metagenome and every bin."""
+    g, reads = _reads(tmp_path)
+    genes = tmp_path / "genes.fasta"
+    genes.write_text(f">geneA\n{g[1000:1120]}\n>geneB\n{g[2000:2100]}\n")
+    bins = tmp_path / "bins"
+    bins.mkdir()
+    for stem in ("settle", "not_settle", "stay", "gone", "came_from_donor",
+                 "came_from_baseline", "came_from_both", "came_itself"):
+        for x in ("1", "2", "s"):
+            (bins / f"{stem}_{x}.fastq").write_text(reads.read_text())
+    r, out = str(reads), tmp_path / "out"
+    fmt = ["-k", "21", "-i", str(bins), "--ext", "fastq", "-after", r]
+    _run(["-t", "triple-reads-classifier", "-k", "21", "-k2", "33",
+          "-i", r, "-r", r, "-o", str(out / "triple"),
+          "--work-dir", str(tmp_path / "w1"), "::",
+          "-t", "seq-cov", "-k", "21", "--from-donor", r, "--from-before", r,
+          "--from-both", r, "--itself", r, "-r", str(genes),
+          "-o", str(out / "cov"), "--work-dir", str(tmp_path / "w2"), "::",
+          "-t", "fmt-visualiser", "-donor", r, "-before", r, *fmt,
+          "-o", str(out / "fmt"), "--work-dir", str(tmp_path / "w3"), "::",
+          "-t", "fmt-visualizer", "-donor", r, "-before", r, *fmt,
+          "-o", str(out / "comp"), "--work-dir", str(tmp_path / "w4"), "::",
+          "-t", "recipient-visualiser", "--seq", str(genes), *fmt,
+          "-o", str(out / "rec"), "--work-dir", str(tmp_path / "w5")],
+         env={"MC_DEVICE_CLASSIFY": "1", "MC_DEVICE_CONTRACT": "1"})
+    assert (out / "triple" / "found_s.fastq").read_text().count("\n+\n") \
+        == 500
+    assert len((out / "cov" / "seq_cov.csv").read_text().splitlines()) == 3
+    for name in ("fmt/donor.gfa", "fmt/after.gfa", "comp/after/comp0.gfa",
+                 "rec/after/comp_1.gfa"):
+        assert "\tCL:Z:" in (out / name).read_text(), name
