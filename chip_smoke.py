@@ -10,17 +10,23 @@ at a real data size and checks them:
   1. device         the card's name and power limit;
   2. build          the CUDA extraction kernel (nvcc, sm_90a) and the native
                     host libraries, all from this checkout's sources;
-  3. kernel         the kernel's append against its plain torch version on
-                    the card, bit for bit, with both times: counting's
-                    batches for several k, and the classifier's 0-padded
-                    (8192, 150) batch at k=31;
+  3. kernel         both entries of the kernel against their plain torch
+                    versions on the card, bit for bit, for several k, with
+                    the kernel's, the plain version's and the bound's times
+                    (bytes over 3.35 TB/s): a ragged counting launch (4096
+                    reads of 150 codes, and 4096 chunks of random lengths at
+                    odd starts), the classifier's 0-padded (8192, 150) batch
+                    and a ragged launch of 131,072 reads (about 146 MB);
   4. oracle         count_kmers_device on the card against the host oracle
                     count_kmers_host, and a small environment-finder run on
                     the card against the same run on the CPU, byte for byte;
   5. slice          environment-finder at k=31 on a synthetic metagenome made
                     from --seed (20 genomes of 250 kbp, 150 bp reads at 20x
                     with 0.8% substitutions, three 1.5 kbp genes), counting
-                    the kernel's launches during the run;
+                    the kernel's launches during the run, then exact
+                    counting's stages (parse, chunk table, and the device
+                    time of the kernel, copies and consolidation under
+                    torch.profiler);
   6. hashed ops     hashed keys (poly, FNV-1a; k = 32, 55, 63) on the card
                     against the CPU, and KmerMap.lookup_device on the card
                     against the host get_many, bit for bit, with times;
@@ -76,7 +82,9 @@ import torch
 
 KERNEL_KS = (3, 16, 17, 21, 31)
 MAIN_K = 31
-BATCH, LEN = 4096, 256  # counting's default (B, L) batch
+BATCH, LEN = 4096, 256  # counting's default chunks per launch, chunk length
+LARGE_ROWS = 131_072    # a ragged launch of about 146 MB, well above the L2
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 HASH_KS = (32, 55, 63)
 HASH_K = 55
 CLASSIFY_PAIRS = 333_334
@@ -190,7 +198,8 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def count_batch(rng, k: int) -> np.ndarray:
-    """A (BATCH, LEN) int8 batch as counting packs it: N gaps, -1 padding."""
+    """A (BATCH, LEN) int8 batch as the hashed regime packs it: N gaps, -1
+    padding."""
     codes = rng.integers(0, 4, (BATCH, LEN)).astype(np.int8)
     codes[rng.random((BATCH, LEN)) < 0.01] = -1          # N gaps
     tail = rng.integers(k, LEN + 1, BATCH)                # -1 padding
@@ -207,10 +216,118 @@ def classify_batch(rng) -> np.ndarray:
     return codes
 
 
-def hold_kernel(codes: np.ndarray, k: int, what: str, card: str
-                ) -> tuple[int, float, float]:
-    """The kernel's append against its plain version on the card, bit for
-    bit, on one batch; returns (max_abs_err, kernel ms, plain ms)."""
+def ragged_rows(rng, rows: int, k: int, layout: str
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(codes, starts, lens) of a ragged launch. 'reads': `rows` chunks of
+    READ_LEN codes back to back, as counting hands 150 bp reads to the
+    kernel, with 1% -1 codes; 'chunks': lengths in [k, LEN] at odd starts,
+    with gaps and k-1 overlaps between neighbours."""
+    if layout == "reads":
+        lens = np.full(rows, READ_LEN, np.int64)
+        starts = np.arange(rows, dtype=np.int64) * READ_LEN
+    else:
+        lens = rng.integers(k, LEN + 1, rows)
+        step = lens[:-1] - np.where(rng.random(rows - 1) < 0.3, k - 1, 0)
+        step += rng.integers(0, 9, rows - 1)
+        starts = np.concatenate([[0], np.cumsum(step)]) | 1
+    codes = rng.integers(0, 4, int((starts + lens).max())).astype(np.int8)
+    codes[rng.random(codes.size) < 0.01] = -1
+    return codes, starts, lens.astype(np.int32)
+
+
+def _self_device_us(ev) -> float:
+    """A key_averages() row's own device time in us (the attribute's name
+    changed across torch versions)."""
+    us = getattr(ev, "self_device_time_total", None)
+    return us if us is not None else getattr(ev, "self_cuda_time_total", 0.0)
+
+
+def _kernel_device_ms(fn, reps: int) -> float | None:
+    """Mean device time of the extraction kernel per call of `fn`, from
+    torch.profiler (CUPTI); None when the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_self_device_us(ev) for ev in prof.key_averages()
+             if "extract_kernel" in ev.key)
+    return us / reps / 1e3 if us else None
+
+
+def _timed_pair(kern, plain) -> dict:
+    """The kernel's device time per launch (profiler), the time per call of
+    `kern` between CUDA events (the host's launch cost included where it is
+    the longer), and the plain version's, each the best of two, in turns."""
+    for fn in (kern, plain):  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    p1 = _time_ms(plain, 3)
+    k1 = _time_ms(kern, 50)
+    d1 = _kernel_device_ms(kern, 50)
+    k2 = _time_ms(kern, 50)
+    d2 = _kernel_device_ms(kern, 50)
+    p2 = _time_ms(plain, 3)
+    device = [d for d in (d1, d2) if d is not None]
+    return {"device_ms": min(device) if device else None,
+            "call_ms": min(k1, k2), "plain_ms": min(p1, p2)}
+
+
+def _record(what: str, k: int, err: int, times: dict, nbytes: int,
+            card: str, wrapper_ms: float | None = None) -> dict:
+    """One shape's line and record. ms is the kernel's device time, or its
+    time per call where the profiler saw no device time."""
+    ms = times["device_ms"] or times["call_ms"]
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {"shape": what, "k": k, "max_abs_err": err, "ms": ms, **times,
+           "wrapper_ms": wrapper_ms, "bytes": nbytes, "bound_ms": bound_ms,
+           "share_of_bound": bound_ms / ms}
+    dev = ("device time not measured" if times["device_ms"] is None
+           else f"{times['device_ms']:.4f} ms on the device")
+    wrap = ("" if wrapper_ms is None
+            else f", {wrapper_ms:.4f} ms with the fault check")
+    say("kernel", f"k={k:2d} {what}: bit-equal to the plain version; kernel "
+                  f"{dev}, {times['call_ms']:.4f} ms per call{wrap}; plain "
+                  f"{times['plain_ms']:.4f} ms; {nbytes} bytes, bound "
+                  f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of the "
+                  f"bound ({card})")
+    return rec
+
+
+def hold_ragged(codes: np.ndarray, starts: np.ndarray, lens: np.ndarray,
+                k: int, what: str, card: str) -> dict:
+    """The ragged entry against its plain version on the card, bit for bit,
+    with the kernel's time alone, the wrapper's (zeroing the fault word and
+    reading it back), and the plain version's."""
+    from metacherchant_tpu_torch.ops import extract_cuda as ec
+    dev = torch.device("cuda")
+    offs = ec.row_offsets(lens, k)
+    args = [torch.from_numpy(a).to(dev) for a in (codes, starts, lens, offs)]
+    n = int((lens.astype(np.int64) - k + 1).sum())
+    got = torch.empty(n, dtype=torch.int64, device=dev)
+    want = torch.empty_like(got)
+    ec.extract_append_ragged(*args, k, got)
+    ec.extract_append_ragged_plain(*args, k, want)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    check(torch.equal(got, want),
+          f"ragged kernel differs from its plain version at k={k} on {what} "
+          f"(max_abs_err {err})")
+    faults = torch.zeros(1, dtype=torch.int32, device=dev)
+    times = _timed_pair(
+        lambda: ec._launch_ragged(*args, k, got, faults),
+        lambda: ec.extract_append_ragged_plain(*args, k, want))
+    check(int(faults) == 0, f"the kernel found faults {int(faults)} in the "
+                            f"tables of {what}")
+    wrapper_ms = min(_time_ms(lambda: ec.extract_append_ragged(*args, k, got),
+                              20) for _ in range(2))
+    nbytes = codes.size + 20 * lens.size + 8 * n
+    return _record(what, k, err, times, nbytes, card, wrapper_ms)
+
+
+def hold_dense(codes: np.ndarray, k: int, what: str, card: str) -> dict:
+    """The dense entry against its plain version on the card, bit for bit."""
     from metacherchant_tpu_torch.ops import extract_cuda as ec
     d = torch.from_numpy(codes).to(torch.device("cuda"))
     B, L = codes.shape
@@ -223,35 +340,34 @@ def hold_kernel(codes: np.ndarray, k: int, what: str, card: str
     check(torch.equal(got, want),
           f"kernel differs from its plain version at k={k} on {what} "
           f"(max_abs_err {err})")
-    kern = lambda: ec.extract_append(d, k, got)          # noqa: E731
-    plain = lambda: ec.extract_append_plain(d, k, want)  # noqa: E731
-    for fn in (kern, plain):                             # warm-up
-        fn()
-    torch.cuda.synchronize()
-    p1 = _time_ms(plain, 5)
-    k1 = _time_ms(kern, 50)
-    k2 = _time_ms(kern, 50)
-    p2 = _time_ms(plain, 5)
-    ms, plain_ms = min(k1, k2), min(p1, p2)
-    say("kernel", f"k={k:2d} ({B}x{L} int8 codes, {what}): bit-equal to the "
-                  f"plain version; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms ({card})")
-    return err, ms, plain_ms
+    times = _timed_pair(lambda: ec.extract_append(d, k, got),
+                        lambda: ec.extract_append_plain(d, k, want))
+    return _record(what, k, err, times, codes.size + 8 * got.numel(), card)
 
 
 def phase_kernel(rng, card: str) -> dict:
-    worst = 0
-    timing = {}
+    """Both entries against their plain versions for every k of KERNEL_KS on
+    a counting launch (BATCH reads of 150 codes, and BATCH chunks of random
+    lengths at odd starts), the classifier's dense batch and a ragged launch
+    of LARGE_ROWS reads well above the L2. Returns the main path's record
+    (the counting launch at MAIN_K) with every shape's at MAIN_K."""
+    recs = []
     for k in KERNEL_KS:
-        err, ms, plain_ms = hold_kernel(count_batch(rng, k), k,
-                                        "counting batch, -1 padding", card)
-        worst = max(worst, err)
-        timing[k] = (ms, plain_ms)
-    err, _, _ = hold_kernel(classify_batch(rng), MAIN_K,
-                            "classify batch, 0 padding", card)
-    worst = max(worst, err)
-    ms, plain_ms = timing[MAIN_K]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        recs.append(hold_ragged(*ragged_rows(rng, BATCH, k, "reads"), k,
+                                f"counting launch, {BATCH} reads of "
+                                f"{READ_LEN}", card))
+        recs.append(hold_ragged(*ragged_rows(rng, BATCH, k, "chunks"), k,
+                                f"counting launch, {BATCH} chunks of "
+                                f"{k}-{LEN} at odd starts", card))
+        recs.append(hold_dense(classify_batch(rng), k,
+                               f"classify batch {CLASSIFY_BATCH}x{READ_LEN}, "
+                               f"0 padding", card))
+        recs.append(hold_ragged(*ragged_rows(rng, LARGE_ROWS, k, "reads"), k,
+                                f"large launch, {LARGE_ROWS} reads of "
+                                f"{READ_LEN}", card))
+    main = [r for r in recs if r["k"] == MAIN_K]
+    return {**main[0], "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "shapes": main}
 
 
 def tree(root: str) -> dict[str, bytes]:
@@ -412,7 +528,63 @@ def phase_slice(rng, genomes: np.ndarray, tmp: str, card: str
                  f"peak device memory "
                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
                  f"({card})")
+    counting_breakdown(fq, card)
     return run.launches, fq, genes
+
+
+def counting_breakdown(fq: str, card: str) -> None:
+    """Exact counting of the slice's reads by stage: the native parse and
+    the chunk table on the host clock, then count_kmers_device whole under
+    torch.profiler, its device time split into the kernel, host-to-device
+    copies, device-to-host copies and the rest (consolidation sorts, scans
+    and masks, the wrapper's table checks)."""
+    from torch.profiler import ProfilerActivity, profile
+    from metacherchant_tpu_torch import native
+    from metacherchant_tpu_torch.counting import (_chunk_table,
+                                                  count_kmers_device)
+    t0 = time.perf_counter()
+    _, offs = native.parse_fragments(fq, "fastq", 33)
+    t_parse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, clen = _chunk_table(offs, MAIN_K, 0, LEN)
+    t_table = time.perf_counter() - t0
+    lanes = int((clen - MAIN_K + 1).sum())
+    count_kmers_device([fq], MAIN_K, device=torch.device("cuda"))  # warm-up
+    torch.cuda.synchronize()
+    gc.collect()
+    t0 = time.perf_counter()
+    count_kmers_device([fq], MAIN_K, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    t_plain_run = time.perf_counter() - t0
+    from metacherchant_tpu_torch.ops import extract_cuda
+    before = extract_cuda.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        count_kmers_device([fq], MAIN_K, device=torch.device("cuda"))
+        torch.cuda.synchronize()
+        t_total = time.perf_counter() - t0
+    launches = extract_cuda.LAUNCHES - before
+    parts = {"kernel": 0.0, "HtoD": 0.0, "DtoH": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        us = _self_device_us(ev)
+        if not us:
+            continue
+        name = ("kernel" if "extract_kernel" in ev.key else "HtoD"
+                if "HtoD" in ev.key else "DtoH" if "DtoH" in ev.key
+                else "other")
+        parts[name] += us / 1e3
+    busy = sum(parts.values())
+    say("slice", f"counting breakdown, {clen.size} chunks, {lanes} windows "
+                 f"appended (no padding): parse {t_parse:.3f} s, chunk table "
+                 f"{t_table:.3f} s; count_kmers_device {t_plain_run:.3f} s "
+                 f"({t_total:.3f} s under the profiler); device ms: "
+                 + ", ".join(f"{n} {v:.3f}" for n, v in parts.items())
+                 + f"; {launches} launches, kernel "
+                 f"{parts['kernel'] / max(launches, 1):.4f} ms each"
+                 + (f"; device busy {busy / (1e3 * t_total):.4f} of the "
+                    f"profiled run" if busy else "; device time not "
+                    "measured (the profiler saw none)") + f" ({card})")
 
 
 def phase_hashed_ops(rng, card: str) -> None:
@@ -1085,6 +1257,11 @@ def main() -> int:
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
+        "bound_ms": kernel["bound_ms"],
+        "bound_by": "bytes",
+        "share_of_bound": kernel["share_of_bound"],
+        "library_ms": None,
+        "shapes": kernel["shapes"],
     }]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

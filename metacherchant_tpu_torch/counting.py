@@ -2,10 +2,12 @@
 
 Counterpart of metacherchant_tpu/counting.py for the `sort` engine, in the
 exact (k <= 31) and hashed (k > 31 or --forcehash, src/io/LargeKIOUtils.java
-:40-88) regimes: reads are packed on the host into fixed-shape (B, L) int8
-code batches (native parser + vectorized chunking, or the Python readers),
-moved to the device, and counted by ops/sortcount.StreamCounter. Long
-fragments are chunked with k-1 overlap so every window is counted once.
+:40-88) regimes, counted by ops/sortcount.StreamCounter. Long fragments are
+chunked with k-1 overlap so every window is counted once. With the native
+parser, exact keys come from ragged rows: per launch one contiguous slice of
+the parsed codes and its chunk table go to the device, and only real
+windows reach the append buffer. The hashed regime and the Python readers
+pack (B, L) int8 batches, -1 padded, on the host.
 count_kmers_host and seed_keys_of_sequence are the host oracles;
 load_present_kmer_strings recovers the strings of a hashed map.
 """
@@ -22,6 +24,7 @@ from .dna import canonical_code, kmer_to_code, encode, CHAR_TO_CODE
 from .io.readers import iter_reads_split
 from .kmer_map import KmerMap
 from .ops.kmers import hash_codes_np, pack_reads
+from .ops.extract_cuda import row_offsets
 from .ops.sortcount import StreamCounter
 
 logger = logging.getLogger("metacherchant")
@@ -57,11 +60,14 @@ def iter_fragments(files: Iterable[str], k: int, min_len: int,
             yield from _chunk_fragment(frag, k, max_len)
 
 
-def _native_batches(path: str, k: int, min_len: int, batch: int,
-                    max_len: int) -> Iterator[np.ndarray] | None:
-    """Whole-file packed (batch, max_len) int8 code batches via the native
-    parser + vectorized chunking/packing; None -> caller uses the Python
-    per-fragment path. Chunking semantics identical to _chunk_fragment."""
+def _native_chunks(path: str, k: int, min_len: int, max_len: int
+                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
+    """The whole file through the native parser, as (codes, cstart, clen):
+    the parsed int8 codes and the chunk table, chunk i being
+    codes[cstart[i]:cstart[i] + clen[i]]. Fragments shorter than
+    max(min_len, k) are dropped and longer ones than max_len chunk with k-1
+    overlap, as _chunk_fragment does. None -> the caller uses the Python
+    per-fragment path."""
     from . import native
     from .io.readers import detect_file_format, determine_quality_format
     try:
@@ -80,32 +86,59 @@ def _native_batches(path: str, k: int, min_len: int, batch: int,
             from .io.readers import SequenceError
             raise SequenceError(str(e)) from None
         return None
+    return (codes, *_chunk_table(offs, k, min_len, max_len))
 
-    def gen():
-        lens = np.diff(offs)
-        starts = offs[:-1]
-        keep = lens >= max(min_len, k)
-        lens_k, starts_k = lens[keep], starts[keep]
-        if lens_k.size == 0:
-            return
-        stride = max_len - (k - 1)
-        nch = np.where(lens_k <= max_len, 1,
-                       -(-(lens_k - (k - 1)) // stride)).astype(np.int64)
-        frag_id = np.repeat(np.arange(starts_k.size), nch)
-        first = np.repeat(np.cumsum(nch) - nch, nch)
-        rank = np.arange(frag_id.size) - first
-        cstart = starts_k[frag_id] + rank * stride
-        clen = np.minimum(max_len, lens_k[frag_id] - rank * stride)
-        ar = np.arange(max_len)
-        for b0 in range(0, cstart.size, batch):
-            cs, cl = cstart[b0:b0 + batch], clen[b0:b0 + batch]
-            out = np.full((batch, max_len), -1, np.int8)
-            mask = ar[None, :] < cl[:, None]
-            src = cs[:, None] + ar[None, :]
-            out[: cs.size][mask] = codes[src[mask]]
-            yield out
 
-    return gen()
+def _chunk_table(offs: np.ndarray, k: int, min_len: int, max_len: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """(cstart, clen) of the chunks of the parsed fragments (fragment i is
+    codes[offs[i]:offs[i+1]])."""
+    lens = np.diff(offs)
+    starts = offs[:-1]
+    keep = lens >= max(min_len, k)
+    lens_k, starts_k = lens[keep], starts[keep]
+    stride = max_len - (k - 1)
+    nch = np.where(lens_k <= max_len, 1,
+                   -(-(lens_k - (k - 1)) // stride)).astype(np.int64)
+    frag_id = np.repeat(np.arange(starts_k.size), nch)
+    first = np.repeat(np.cumsum(nch) - nch, nch)
+    rank = np.arange(frag_id.size) - first
+    cstart = starts_k[frag_id] + rank * stride
+    clen = np.minimum(max_len, lens_k[frag_id] - rank * stride)
+    return cstart, clen
+
+
+def _packed_batches(chunks: tuple[np.ndarray, np.ndarray, np.ndarray],
+                    batch: int, max_len: int) -> Iterator[np.ndarray]:
+    """The chunks packed into (batch, max_len) int8 batches, -1 padded (the
+    hashed regime's input)."""
+    codes, cstart, clen = chunks
+    ar = np.arange(max_len)
+    for b0 in range(0, cstart.size, batch):
+        cs, cl = cstart[b0:b0 + batch], clen[b0:b0 + batch]
+        out = np.full((batch, max_len), -1, np.int8)
+        mask = ar[None, :] < cl[:, None]
+        src = cs[:, None] + ar[None, :]
+        out[: cs.size][mask] = codes[src[mask]]
+        yield out
+
+
+def _ragged_launches(chunks: tuple[np.ndarray, np.ndarray, np.ndarray],
+                     batch: int, k: int, device: torch.device
+                     ) -> Iterator[tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor, torch.Tensor, int]]:
+    """Per launch of `batch` chunks: the one contiguous slice of the parsed
+    codes that holds them and their rebased (starts, lens, offs) table on
+    `device`, and their window count; no padding anywhere."""
+    codes, cstart, clen = chunks
+    for b0 in range(0, cstart.size, batch):
+        cs, cl = cstart[b0:b0 + batch], clen[b0:b0 + batch]
+        lo, hi = int(cs[0]), int((cs + cl).max())
+        table = np.stack([cs - lo, row_offsets(cl, k), cl])
+        t = torch.from_numpy(table).to(device)
+        starts, offs, lens = t[0], t[1], t[2].to(torch.int32)
+        yield (torch.from_numpy(codes[lo:hi]).to(device), starts, lens, offs,
+               int(cl.sum()) - cl.size * (k - 1))
 
 
 def _sort_geometry(table_log2: int, batch: int, max_len: int
@@ -135,8 +168,9 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
     hasher None keys exactly, 'poly' or 'fnv1a' by hash.
 
     engine: 'sort' (the default and, so far, the only ported engine).
-    Ingestion uses the native (C++) parser + vectorized packing per file when
-    available, else the Python per-fragment readers."""
+    Ingestion uses the native (C++) parser per file when available (ragged
+    rows for exact keys, packed batches for hashed ones), else the Python
+    per-fragment readers."""
     engine = engine or os.environ.get("MC_COUNT_ENGINE", "sort")
     if engine in _UNPORTED_ENGINES:
         raise NotImplementedError(
@@ -173,12 +207,17 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
         buf.clear()
 
     for f in files:
-        nb = _native_batches(f, k, min_len, batch, max_len)
-        if nb is not None:
+        chunks = _native_chunks(f, k, min_len, max_len)
+        if chunks is not None:
             flush()  # keep batches file-aligned on the native path
-            for packed in nb:
-                sink(packed)
-                progress.update(batch)
+            if hasher is None:
+                for *launch, n in _ragged_launches(chunks, batch, k, device):
+                    counter.add_ragged(*launch, n, k)
+                    progress.update(batch)
+            else:
+                for packed in _packed_batches(chunks, batch, max_len):
+                    sink(packed)
+                    progress.update(batch)
         else:
             for frag in iter_fragments([f], k, min_len, max_len):
                 buf.append(frag)

@@ -6,7 +6,10 @@ Counterpart of metacherchant_tpu/ops/sortcount.py::StreamCounter:
                 first k-1 columns and write the rest flat at buf[offset:]
                 (append_codes; exact keys through the CUDA kernel of
                 ops/extract_cuda.py on a GPU and its plain torch version on
-                the CPU, hashed keys through ops/kmers.hash_canonical_kmers)
+                the CPU, hashed keys through ops/kmers.hash_canonical_kmers);
+                or write the exact keys of ragged rows of a flat code array,
+                every window of every row and nothing else (append_ragged,
+                the same kernel's ragged entry)
   consolidate:  when the buffer is full, merge it into the sorted (key,
                 count) store: one sort of store + buffer, an int64 cumsum of
                 the weights, the run-last lanes kept by a boolean mask, and
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from ..kmer_map import SATURATION
-from .extract_cuda import extract_append
+from .extract_cuda import extract_append, extract_append_ragged
 from .kmers import SENTINEL, hash_canonical_kmers
 
 #: store counts clamp far above the 32767 output saturation, so repeated
@@ -50,6 +53,21 @@ def append_codes(buf: torch.Tensor, offset: int, codes: torch.Tensor,
     else:
         keys, _ = hash_canonical_kmers(codes, k, hasher)
         buf[offset:offset + n] = keys[:, k - 1:].reshape(-1)
+    return offset + n
+
+
+def append_ragged(buf: torch.Tensor, offset: int, codes: torch.Tensor,
+                  starts: torch.Tensor, lens: torch.Tensor, offs: torch.Tensor,
+                  n: int, k: int) -> int:
+    """Append the exact keys of ragged rows (ops/extract_cuda
+    .extract_append_ragged; `n` is their window count, sum(lens - k + 1))
+    at buf[offset:]. Returns the new offset. Raises where the JAX append
+    would clamp."""
+    if offset + n > buf.numel():
+        raise ValueError(f"append of {n} keys at offset {offset} overflows "
+                         f"the {buf.numel()}-lane buffer")
+    extract_append_ragged(codes, starts, lens, offs, k,
+                          buf[offset:offset + n])
     return offset + n
 
 
@@ -119,6 +137,15 @@ class StreamCounter:
         if self.offset + codes.shape[0] * width > self.buffer_cap:
             self._consolidate()
         self.offset = append_codes(self.buf, self.offset, codes, k, hasher)
+
+    def add_ragged(self, codes: torch.Tensor, starts: torch.Tensor,
+                   lens: torch.Tensor, offs: torch.Tensor, n: int,
+                   k: int) -> None:
+        """Exact keys of ragged rows (append_ragged), `n` windows in all."""
+        if self.offset + n > self.buffer_cap:
+            self._consolidate()
+        self.offset = append_ragged(self.buf, self.offset, codes, starts,
+                                    lens, offs, n, k)
 
     def _grow(self, live: int) -> None:
         """Store growth as metacherchant_tpu's StreamCounter._resolve: double

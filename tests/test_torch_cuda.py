@@ -31,7 +31,7 @@ from metacherchant_tpu_torch.ops.contraction_device import (
 from metacherchant_tpu_torch.ops.kmers import (SENTINEL,
                                                fw_codes_of_kmer_strings,
                                                hash_canonical_kmers)
-from metacherchant_tpu_torch.ops.sortcount import append_codes
+from metacherchant_tpu_torch.ops.sortcount import append_codes, append_ragged
 from metacherchant_tpu_torch.runner import main as port_main
 
 pytestmark = pytest.mark.cuda
@@ -131,24 +131,129 @@ def test_cli_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     assert trees["cuda"] and trees["cuda"] == trees["cpu"]
 
 
+def _ragged_rows(seed: int, rows: int, k: int, layout: str):
+    """(codes, starts, lens) in numpy: 'chunked' rows follow each other as
+    counting's chunks do (gaps, k-1 overlaps, lengths in [k, 256]); 'spread'
+    rows lie far apart, so a tile of them spans more than the kernel stages;
+    'long' rows of 2,000-3,000 codes, the same."""
+    rng = np.random.default_rng(seed)
+    if layout == "long":
+        lens = rng.integers(2000, 3001, rows)
+    else:
+        lens = rng.integers(k, 257, rows)
+    if layout == "spread":
+        starts = rng.integers(0, 4_000_000, rows)
+    else:
+        step = lens[:-1] - np.where(rng.random(rows - 1) < 0.3, k - 1, 0)
+        step += rng.integers(0, 3, rows - 1) * (rng.random(rows - 1) < 0.2)
+        starts = int(rng.integers(0, 16)) + np.concatenate(
+            [[0], np.cumsum(step)])
+    codes = rng.integers(0, 4, int((starts + lens).max()) + 40).astype(np.int8)
+    codes[rng.random(codes.size) < 0.01] = -1
+    return codes, starts.astype(np.int64), lens.astype(np.int32)
+
+
+def _ragged_on(dev, codes, starts, lens, k):
+    offs = extract_cuda.row_offsets(lens, k)
+    return (torch.from_numpy(codes).to(dev), torch.from_numpy(starts).to(dev),
+            torch.from_numpy(lens).to(dev), torch.from_numpy(offs).to(dev),
+            int((lens.astype(np.int64) - k + 1).sum()))
+
+
+@pytest.mark.parametrize("k", [1, 3, 15, 16, 17, 21, 31])
+def test_ragged_kernel_matches_plain_on_card(cuda, k):
+    """777 chunked rows (tiles of 16 rows straddle them unevenly), with the
+    code array starting at every residue mod 16 bytes; rows far apart and
+    long rows, which the kernel reads from device memory."""
+    for layout, rows in (("chunked", 777), ("spread", 300), ("long", 40)):
+        codes, starts, lens = _ragged_rows(k, rows, k, layout)
+        for shift in range(16) if layout == "chunked" else (0, 5):
+            whole = np.concatenate([np.zeros(shift, np.int8), codes])
+            d = torch.from_numpy(whole).to(cuda)[shift:]
+            assert d.data_ptr() % 16 == shift
+            _, ds, dl, do, n = _ragged_on(cuda, codes, starts, lens, k)
+            got = torch.full((n,), 7, dtype=torch.int64, device=cuda)
+            want = torch.empty_like(got)
+            before = extract_cuda.LAUNCHES
+            extract_cuda.extract_append_ragged(d, ds, dl, do, k, got)
+            assert extract_cuda.LAUNCHES == before + 1
+            extract_cuda.extract_append_ragged_plain(d, ds, dl, do, k, want)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (layout, shift)
+        on_cpu = torch.empty(n, dtype=torch.int64)
+        extract_cuda.extract_append_ragged(
+            torch.from_numpy(codes), torch.from_numpy(starts),
+            torch.from_numpy(lens),
+            torch.from_numpy(extract_cuda.row_offsets(lens, k)), k, on_cpu)
+        assert torch.equal(got.cpu(), on_cpu)
+
+
+@pytest.mark.parametrize("case", ["short_row", "negative_start",
+                                  "past_end", "offs_not_running_sum",
+                                  "out_too_large"])
+def test_ragged_kernel_rejects_bad_tables(cuda, case):
+    """The kernel checks the tables and the wrapper raises; a tile with a
+    fault writes nothing."""
+    k = 21
+    codes, starts, lens = _ragged_rows(3, 100, k, "chunked")
+    if case == "short_row":
+        lens[50] = k - 1  # no window; the offsets stay a running sum
+    elif case == "negative_start":
+        starts[0] = -1
+    elif case == "past_end":
+        starts[99] = codes.size - lens[99] + 1
+    dc, ds, dl, do, n = _ragged_on(cuda, codes, starts, lens, k)
+    n += case == "out_too_large"
+    if case == "offs_not_running_sum":
+        do[60] += 1
+    out = torch.full((n,), 7, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="bad ragged rows"):
+        extract_cuda.extract_append_ragged(dc, ds, dl, do, k, out)
+    if case == "short_row":  # the tile of row 50 wrote nothing
+        offs = extract_cuda.row_offsets(lens, k)
+        tile = slice(int(offs[48]), int(offs[64]))
+        assert torch.all(out[tile].cpu() == 7)
+
+
+def test_ragged_append_writes_only_its_lanes(cuda):
+    k = 21
+    codes, starts, lens = _ragged_rows(8, 300, k, "chunked")
+    dc, ds, dl, do, n = _ragged_on(cuda, codes, starts, lens, k)
+    buf = torch.full((n + 140,), 7, dtype=torch.int64, device=cuda)
+    off = append_ragged(buf, 40, dc, ds, dl, do, n, k)
+    torch.cuda.synchronize()
+    host = buf.cpu()
+    assert off == 40 + n
+    assert torch.all(host[:40] == 7) and torch.all(host[off:] == 7)
+    assert torch.any(host[40:off] == SENTINEL)
+    assert not torch.any(host[40:off] == 7)
+
+
 def test_launch_count_is_exact_across_threads(cuda):
+    """Both entries, 50 launches each from each of 8 threads."""
     codes = torch.from_numpy(_codes(9, 64, 100)).to(cuda)
     outs = [torch.empty(64 * 80, dtype=torch.int64, device=cuda)
             for _ in range(8)]
+    rc, rs, rl = _ragged_rows(9, 64, 21, "chunked")
+    ragged = _ragged_on(cuda, rc, rs, rl, 21)
+    routs = [torch.empty(ragged[-1], dtype=torch.int64, device=cuda)
+             for _ in range(8)]
     before = extract_cuda.LAUNCHES
 
-    def work(out):
+    def work(out, rout):
         for _ in range(50):
             extract_cuda.extract_append(codes, 21, out)
+            extract_cuda.extract_append_ragged(*ragged[:4], 21, rout)
 
-    threads = [threading.Thread(target=work, args=(o,)) for o in outs]
+    threads = [threading.Thread(target=work, args=pair)
+               for pair in zip(outs, routs)]
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=120)
     assert not any(t.is_alive() for t in threads)
     torch.cuda.synchronize()
-    assert extract_cuda.LAUNCHES == before + 400
+    assert extract_cuda.LAUNCHES == before + 800
 
 
 @pytest.mark.parametrize("k", [32, 55, 63])
