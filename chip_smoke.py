@@ -4,8 +4,9 @@
 
 Drives metacherchant_tpu_torch's paths (environment-finder in the exact and
 hashed regimes, kmer-counter -> reads-classifier, triple-reads-classifier,
-seq-cov, the three FMT tools, the device contraction, `sort` counting engine)
-at a real data size and checks them:
+seq-cov, the three FMT tools, the device contraction, the device BFS
+engines, the `sort` and `hash` counting engines) at a real data size and
+checks them:
 
   1. device         the card's name and power limit;
   2. build          the CUDA extraction kernel (nvcc, sm_90a) and the native
@@ -34,24 +35,35 @@ at a real data size and checks them:
                     oracle, and a small environment-finder -k 55 --hash fnv1a
                     run on the card against the same run on the CPU;
   8. hashed slice   environment-finder -k 55 on the data of phase 5;
-  9. classify slice kmer-counter -k 31 on the data of phase 5, then
+  9. device-bfs     the hash counting engine on the data of phase 5 against
+                    the sort engine key for key, its table on the card
+                    against the CPU's and its lookup against get_many on
+                    10M queries; environment-finder -k 31 as in phase 5
+                    under MC_DEVICE_BFS=1 (dense), with the probe engine and
+                    with MC_COUNT_ENGINE=hash, and -k 55 as in phase 8 under
+                    MC_DEVICE_BFS=1 (multiword), each byte-identical to the
+                    host FIFO's files; a wide frontier (65,536 seeds on a
+                    400 kbp genome, radius 50) with the host FIFO, dense and
+                    probe; small runs on the card against the CPU; BFS
+                    seconds and layers per direction, peak device memory;
+ 10. classify slice kmer-counter -k 31 on the data of phase 5, then
                     reads-classifier on its dump for 333,334 read pairs (half
                     from those genomes, half from 20 others), with the host
                     coverage and with MC_DEVICE_CLASSIFY, bins compared;
- 10. contract-ops   the device contraction (contract_codes_device) on about
+ 11. contract-ops   the device contraction (contract_codes_device) on about
                     400K canonical 31-mers (a 400 kbp genome, cycles, color
                     tags) on the card against the CPU, bit for bit, with the
                     card's ms and the host assembly's seconds; and a small
                     environment-finder under MC_DEVICE_CONTRACT=1 on the card
                     against the CPU;
- 11. triple-slice   kmer-counter -k 55 on the data of phase 5, then
+ 12. triple-slice   kmer-counter -k 55 on the data of phase 5, then
                     triple-reads-classifier -k 31 -k2 55 on the dumps for the
                     read pairs of phase 9, host and device coverage, nine
                     bins compared;
- 12. seq-cov        small bins on the card against the CPU, then four bins of
+ 13. seq-cov        small bins on the card against the CPU, then four bins of
                     the reads of phase 5 against the three genes and three
                     pieces of the other genomes (breadth near 1 and 0);
- 13. fmt            synthetic donor, before and after metagenomes of 400 kbp
+ 14. fmt            synthetic donor, before and after metagenomes of 400 kbp
                     (20x, 0.1% substitutions) and their classified bins:
                     fmt-visualiser -k 31 with the host sweep and with
                     MC_DEVICE_CONTRACT=1 (same unitigs and colors),
@@ -63,7 +75,8 @@ at a real data size and checks them:
 Every phase prints its own lines and its seconds; any failure exits
 non-zero. The last two lines are the kernels' JSON record and the device
 JSON record. Imports no JAX and nothing of the JAX package. Needs one CUDA
-device: without one it exits 2 and prints no result.
+device and the package beside it: without either it exits 2 and prints no
+result.
 """
 from __future__ import annotations
 
@@ -98,6 +111,13 @@ TRIPLE_K2 = 55
 FMT_PARTS = {"settle": 150, "not_settle": 200, "stay": 150, "gone": 200,
              "shared": 50, "new": 50}
 FMT_SMALL = 20  # the 20 kbp set: every part divided by this
+#: the JAX package's device-BFS workload B (algo/environment.py:264-267)
+WIDE_GENOME, WIDE_SEEDS, WIDE_RADIUS = 400_000, 65_536, 50
+#: a hash table just below its growth load (0.643 of 2^25 slots), as the
+#: hash engine holds it while counting the slice's 22.4M keys
+PROBE_LOG2, PROBE_KEYS = 25, 21_560_000
+#: the JAX package's DeviceHashTable insert-round bound (hashtable.py:63)
+JAX_PROBE_ROUNDS = 128
 
 
 class SmokeFailure(Exception):
@@ -404,6 +424,14 @@ class Run:
         return hits[0]
 
 
+def bfs_lines(phase: str, run: Run) -> None:
+    """Print a run's BFS engine lines (per direction: engine, seconds,
+    layers) and the dense adjacency's build, from its debug log."""
+    for t, m in run.log:
+        if " BFS, direction " in m or m.startswith("DenseDBG"):
+            say(phase, f"  at {t:.3f} s: {m}")
+
+
 def drive(argv: list[str], **env: str) -> Run:
     """runner.main(argv) with `env` set for the run only (MC_PLATFORM=cuda
     unless given), the extraction kernel's launch count set to 0 just before
@@ -501,7 +529,7 @@ def check_gene_outputs(phase: str, out: str) -> None:
 
 
 def phase_slice(rng, genomes: np.ndarray, tmp: str, card: str
-                ) -> tuple[int, str, str]:
+                ) -> tuple[Run, str, str]:
     t0 = time.perf_counter()
     n_reads = 20 * genomes.size // 150
     fq = os.path.join(tmp, "reads.fastq")
@@ -528,8 +556,9 @@ def phase_slice(rng, genomes: np.ndarray, tmp: str, card: str
                  f"peak device memory "
                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
                  f"({card})")
+    bfs_lines("slice", run)
     counting_breakdown(fq, card)
-    return run.launches, fq, genes
+    return run, fq, genes
 
 
 def counting_breakdown(fq: str, card: str) -> None:
@@ -681,7 +710,7 @@ def phase_hashed_oracle(rng, genomes: np.ndarray, tmp: str, small_fq: str,
                          f"between cuda and cpu")
 
 
-def phase_hashed_slice(fq: str, genes: str, tmp: str, card: str) -> int:
+def phase_hashed_slice(fq: str, genes: str, tmp: str, card: str) -> Run:
     out = os.path.join(tmp, "out55")
     torch.cuda.reset_peak_memory_stats()
     run = drive(["-t", "environment-finder", "-k", str(HASH_K),
@@ -700,7 +729,229 @@ def phase_hashed_slice(fq: str, genes: str, tmp: str, card: str) -> int:
                         f"s, peak device memory "
                         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
                         f"({card})")
-    return run.launches
+    bfs_lines("hashed-slice", run)
+    return run
+
+
+def _peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def hash_engine_checks(rng, fq: str, small_fq: str, card: str) -> int:
+    """MC_COUNT_ENGINE=hash on the slice's reads against the sort engine,
+    key for key; on the small set the card's table against the CPU's; the
+    table's lookup against KmerMap.get_many on LOOKUP_QUERIES queries.
+    Returns the hash engine's kernel launches on the slice's reads."""
+    from metacherchant_tpu_torch.counting import count_kmers_device
+    from metacherchant_tpu_torch.ops import extract_cuda
+    from metacherchant_tpu_torch.ops.hashtable import DeviceHashTable
+    from metacherchant_tpu_torch.ops.kmers import SENTINEL
+    dev = torch.device("cuda")
+    maps, secs, launches = {}, {}, {}
+    for engine in ("sort", "hash", "hash", "sort"):
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        extract_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        maps[engine] = count_kmers_device([fq], MAIN_K, device=dev,
+                                          engine=engine)
+        secs.setdefault(engine, []).append(time.perf_counter() - t0)
+        launches[engine] = extract_cuda.LAUNCHES
+        say("device-bfs", f"count_kmers_device(engine={engine!r}) on the "
+                          f"slice's reads: {len(maps[engine])} distinct "
+                          f"{MAIN_K}-mers in {secs[engine][-1]:.3f} s, "
+                          f"kernel launches {launches[engine]}, peak device "
+                          f"memory {_peak_gib():.3f} GiB ({card})")
+    sort_map, hash_map = maps["sort"], maps["hash"]
+    check(np.array_equal(hash_map.keys, sort_map.keys)
+          and np.array_equal(hash_map.counts, sort_map.counts),
+          "the hash engine's map differs from the sort engine's")
+    check(launches["hash"] == launches["sort"] > 0,
+          f"kernel launches: hash engine {launches['hash']}, sort engine "
+          f"{launches['sort']}")
+    small = {name: count_kmers_device([small_fq], MAIN_K,
+                                      device=torch.device(name),
+                                      engine="hash") for name in ("cuda",
+                                                                   "cpu")}
+    check(np.array_equal(small["cuda"].keys, small["cpu"].keys)
+          and np.array_equal(small["cuda"].counts, small["cpu"].counts),
+          "the hash engine's table on CUDA differs from the CPU's")
+    say("device-bfs", f"hash engine == sort engine key for key "
+                      f"({len(sort_map)} keys; sort {min(secs['sort']):.3f} "
+                      f"s, hash {min(secs['hash']):.3f} s, best of two); "
+                      f"small set: card items == CPU items "
+                      f"({len(small['cpu'])} keys)")
+    t0 = time.perf_counter()
+    table = DeviceHashTable.from_kmer_map(sort_map, dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    half = LOOKUP_QUERIES // 2
+    q = rng.permutation(np.concatenate([
+        rng.choice(sort_map.keys, half),
+        rng.integers(0, 1 << (2 * MAIN_K), LOOKUP_QUERIES - half - 1),
+        [SENTINEL]]))
+    t0 = time.perf_counter()
+    want = sort_map.get_many(q)
+    t_host = time.perf_counter() - t0
+    dq = torch.from_numpy(q).to(dev)
+    got = table.lookup(dq)
+    check(np.array_equal(got.cpu().numpy(), want),
+          "DeviceHashTable.lookup differs from KmerMap.get_many")
+    fn = lambda: table.lookup(dq)  # noqa: E731
+    ms = min(_time_ms(fn, 3), _time_ms(fn, 3))
+    say("device-bfs", f"DeviceHashTable.lookup == KmerMap.get_many on "
+                      f"{q.size} queries ({int((want >= 0).sum())} present); "
+                      f"table of {table.capacity} slots built in "
+                      f"{t_build:.3f} s; lookup {ms:.3f} ms on the card; "
+                      f"host get_many {t_host:.3f} s with its probe-table "
+                      f"build ({card})")
+    del table, dq, got
+    probe_distances(card)
+    return launches["hash"]
+
+
+def probe_distances(card: str) -> None:
+    """How far from its home slot each key lands in a table at load 0.643:
+    a key d slots from home needs d + 1 insert rounds, and the JAX package
+    bounds them at JAX_PROBE_ROUNDS."""
+    from metacherchant_tpu_torch.ops.hashtable import (DeviceHashTable,
+                                                        EMPTY, _mix64)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    keys = torch.unique(torch.randint(0, 1 << 62, (PROBE_KEYS,),
+                                      generator=gen, device=dev))
+    table = DeviceHashTable(dev, capacity_log2=PROBE_LOG2)
+    t0 = time.perf_counter()
+    table.insert_batch(keys)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(table.capacity == 1 << PROBE_LOG2 and table.size == keys.numel(),
+          "probe-distance table grew or lost keys")
+    slot = torch.nonzero(table.tkeys != EMPTY).squeeze(1)
+    home = _mix64(table.tkeys[slot]) & (table.capacity - 1)
+    dist = (slot - home) & (table.capacity - 1)
+    past = int((dist >= JAX_PROBE_ROUNDS).sum())
+    say("device-bfs", f"{keys.numel()} random keys in 2^{PROBE_LOG2} slots "
+                      f"(load {keys.numel() / table.capacity:.3f}) inserted "
+                      f"in {secs:.3f} s: the farthest {int(dist.max())} "
+                      f"slots from home, {past} keys need more than "
+                      f"{JAX_PROBE_ROUNDS} insert rounds ({card})")
+    del table, keys, slot, home, dist
+
+
+def wide_frontier(rng, tmp: str, card: str) -> dict[str, int]:
+    """The JAX package's device-BFS workload B (algo/environment.py:264-267,
+    scripts/profile_dense_bfs.py): a 400 kbp genome's 31-mers, count 1,
+    65,536 seeds at distinct random positions, radius 50, both directions.
+    environment-finder --merge takes the seeds as 31 bp sequences; the host
+    FIFO, the dense and the probe engine must write the same files.
+    Returns the kernel launches of each run."""
+    genome = rng.integers(0, 4, WIDE_GENOME).astype(np.int8)
+    reads = os.path.join(tmp, "wide.fasta")
+    with open(reads, "w") as fh:
+        fh.write(">wide\n" + np.frombuffer(b"AGCT", np.uint8)[genome]
+                 .tobytes().decode() + "\n")
+    pos = np.sort(rng.choice(WIDE_GENOME - MAIN_K + 1, WIDE_SEEDS,
+                             replace=False))
+    genes = os.path.join(tmp, "wide_seeds.fasta")
+    write_genes(genes, [genome[p:p + MAIN_K] for p in pos])
+    trees, launches = {}, {}
+    for mode, env in (("host", {"MC_DEVICE_BFS": "0"}),
+                      ("dense", {"MC_DEVICE_BFS": "1"}),
+                      ("probe", {"MC_DEVICE_BFS": "1",
+                                 "MC_DEVICE_BFS_ENGINE": "probe"})):
+        out = os.path.join(tmp, f"wide_{mode}")
+        torch.cuda.reset_peak_memory_stats()
+        run = drive(["-t", "environment-finder", "-k", str(MAIN_K),
+                     "-i", reads, "--seq", genes, "-o", out, "--merge",
+                     "--bothdirs", "--coverage", "1", "--maxradius",
+                     str(WIDE_RADIUS), "--work-dir",
+                     os.path.join(tmp, f"wdw_{mode}")], **env)
+        trees[mode], launches[mode] = tree(out), run.launches
+        t_seeds = run.line("Finding single environment")[0]
+        t_ext = run.line("Extending endings")[0]
+        say("device-bfs", f"wide frontier ({WIDE_SEEDS} seeds, radius "
+                          f"{WIDE_RADIUS}, {mode}): {run.seconds:.3f} s, "
+                          f"seeding to written environment "
+                          f"{t_ext - t_seeds:.3f} s, peak device memory "
+                          f"{_peak_gib():.3f} GiB ({card})")
+        bfs_lines("device-bfs", run)
+    with open(os.path.join(tmp, "wide_host", "merged", "graph.txt")) as fh:
+        n_env = sum(1 for _ in fh)
+    check(trees["host"] == trees["dense"] == trees["probe"]
+          and len(trees["host"]) == 5 and n_env > WIDE_SEEDS,
+          "wide frontier: the device engines' files differ from the host "
+          "FIFO's")
+    say("device-bfs", f"wide frontier: {n_env} environment k-mers, the "
+                      f"five files byte-identical for host FIFO, dense and "
+                      f"probe")
+    return launches
+
+
+def phase_device_bfs(rng, tmp: str, slice_run: Run, fq: str, genes: str,
+                     hashed_run: Run, small_fq: str, card: str) -> dict:
+    """The hash counting engine and the MC_DEVICE_BFS engines at the
+    slices' size and on the wide frontier, each held to its host
+    counterpart byte for byte. Returns the kernel launches by path."""
+    launches = {"hash-count": hash_engine_checks(rng, fq, small_fq, card)}
+    slice_out = tree(os.path.join(tmp, "out"))
+    say("device-bfs", f"host FIFO (slice phase): {slice_run.seconds:.3f} s")
+    bfs_lines("device-bfs", slice_run)
+    for label, env in (("dense", {"MC_DEVICE_BFS": "1"}),
+                       ("probe", {"MC_DEVICE_BFS": "1",
+                                  "MC_DEVICE_BFS_ENGINE": "probe"}),
+                       ("hash", {"MC_COUNT_ENGINE": "hash"})):
+        out = os.path.join(tmp, f"out_{label}")
+        torch.cuda.reset_peak_memory_stats()
+        run = drive(["-t", "environment-finder", "-k", str(MAIN_K),
+                     "-i", fq, "--seq", genes, "-o", out,
+                     "--coverage", "5", "--maxradius", "1000",
+                     "--work-dir", os.path.join(tmp, f"wd_{label}")], **env)
+        check(tree(out) == slice_out,
+              f"environment-finder -k {MAIN_K} {env}: outputs differ from "
+              f"the default run's")
+        launches[label] = run.launches
+        say("device-bfs", f"environment-finder -k {MAIN_K} {env}: "
+                          f"{len(slice_out)} files byte-identical to the "
+                          f"default run; {run.seconds:.3f} s, kernel "
+                          f"launches {run.launches}, peak device memory "
+                          f"{_peak_gib():.3f} GiB ({card})")
+        bfs_lines("device-bfs", run)
+    hashed_out = tree(os.path.join(tmp, "out55"))
+    say("device-bfs", f"host FIFO (hashed-slice phase): "
+                      f"{hashed_run.seconds:.3f} s")
+    bfs_lines("device-bfs", hashed_run)
+    out = os.path.join(tmp, "out55_device")
+    torch.cuda.reset_peak_memory_stats()
+    run = drive(["-t", "environment-finder", "-k", str(HASH_K), "-i", fq,
+                 "--seq", genes, "-o", out, "--coverage", "5",
+                 "--maxradius", "1000",
+                 "--work-dir", os.path.join(tmp, "wd55_device")],
+                MC_DEVICE_BFS="1")
+    check(tree(out) == hashed_out, f"environment-finder -k {HASH_K} under "
+                                   f"MC_DEVICE_BFS=1 differs from the "
+                                   f"hashed slice")
+    launches["multiword"] = run.launches
+    say("device-bfs", f"environment-finder -k {HASH_K} MC_DEVICE_BFS=1: "
+                      f"{len(hashed_out)} files byte-identical to the hashed "
+                      f"slice; {run.seconds:.3f} s, kernel launches "
+                      f"{run.launches}, peak device memory {_peak_gib():.3f} "
+                      f"GiB ({card})")
+    bfs_lines("device-bfs", run)
+    wide = wide_frontier(rng, tmp, card)
+    launches.update({f"wide-{m}": n for m, n in wide.items()})
+    small_genes = os.path.join(tmp, "small_genes.fasta")
+    for k, extra, env in ((MAIN_K, (), {"MC_DEVICE_BFS": "1"}),
+                          (MAIN_K, (), {"MC_DEVICE_BFS": "1",
+                                        "MC_DEVICE_BFS_ENGINE": "probe"}),
+                          (HASH_K, ("--hash", "fnv1a"),
+                           {"MC_DEVICE_BFS": "1"})):
+        outs, _ = small_run_on_both(tmp, small_fq, small_genes, k, extra,
+                                    **env)
+        say("device-bfs", f"small environment-finder -k {k} {env}: "
+                          f"{len(outs)} files byte-identical between cuda "
+                          f"and cpu")
+    return launches
 
 
 def sample_pairs(rng, genomes: np.ndarray, n: int, sub_rate: float
@@ -1206,7 +1457,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible; nothing was run",
               file=sys.stderr)
         return 2
-    import metacherchant_tpu_torch  # noqa: F401  (fails outside a checkout)
+    try:
+        import metacherchant_tpu_torch  # noqa: F401
+    except ModuleNotFoundError:
+        print("chip_smoke: metacherchant_tpu_torch not found; run it from "
+              "the root of a checkout; nothing was run", file=sys.stderr)
+        return 2
 
     card = torch.cuda.get_device_name(0)
     smi = smi_line()
@@ -1219,13 +1475,17 @@ def main() -> int:
     genomes = rng.integers(0, 4, (20, 250_000)).astype(np.int8)
     with tempfile.TemporaryDirectory() as tmp:
         small_fq = timed("oracle", smi, phase_oracle, rng, genomes, tmp)
-        launches, fq, genes = timed("slice", smi, phase_slice, rng, genomes,
-                                    tmp, smi)
+        slice_run, fq, genes = timed("slice", smi, phase_slice, rng,
+                                     genomes, tmp, smi)
+        launches = slice_run.launches
         timed("hashed-ops", smi, phase_hashed_ops, rng, smi)
         timed("hashed-oracle", smi, phase_hashed_oracle, rng, genomes, tmp,
               small_fq, smi)
-        hashed = timed("hashed-slice", smi, phase_hashed_slice, fq, genes,
-                       tmp, smi)
+        hashed_run = timed("hashed-slice", smi, phase_hashed_slice, fq,
+                           genes, tmp, smi)
+        hashed = hashed_run.launches
+        dbfs = timed("device-bfs", smi, phase_device_bfs, rng, tmp,
+                     slice_run, fq, genes, hashed_run, small_fq, smi)
         cls = timed("classify-slice", smi, phase_classify_slice, rng,
                     genomes, fq, tmp, smi)
         contract = timed("contract-ops", smi, phase_contract_ops, rng, tmp,
@@ -1253,6 +1513,18 @@ def main() -> int:
             f"recipient-visualiser -k {MAIN_K}": recipient,
             f"environment-finder -k {MAIN_K} MC_DEVICE_CONTRACT=1 (small)":
                 contract,
+            f"count_kmers_device -k {MAIN_K} MC_COUNT_ENGINE=hash":
+                dbfs["hash-count"],
+            f"environment-finder -k {MAIN_K} MC_COUNT_ENGINE=hash":
+                dbfs["hash"],
+            f"environment-finder -k {MAIN_K} MC_DEVICE_BFS=1 (dense)":
+                dbfs["dense"],
+            f"environment-finder -k {MAIN_K} MC_DEVICE_BFS=1 "
+            "MC_DEVICE_BFS_ENGINE=probe": dbfs["probe"],
+            f"environment-finder -k {HASH_K} MC_DEVICE_BFS=1 (multiword)":
+                dbfs["multiword"],
+            **{f"environment-finder -k {MAIN_K} wide frontier ({mode})":
+               dbfs[f"wide-{mode}"] for mode in ("host", "dense", "probe")},
         },
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],

@@ -1,11 +1,12 @@
-"""Genomic-environment extraction: FIFO BFS over the counted dBG (host).
+"""Genomic-environment extraction: frontier BFS over the counted dBG.
 
 Carried over from metacherchant_tpu/algo/environment.py: the host engines of
 the main path (native C++ FIFO BFS, the Python FIFO as its oracle, trim,
-seeding, normalization). The JAX package's device BFS engines are not ported
-yet; asking for them (MC_DEVICE_BFS, MC_DEVICE_BFS_MIN_SEEDS) raises.
-k-mers are oriented 2-bit codes; coverage probes are vectorized lookups into
-the k-mer map.
+seeding, normalization), the layer-synchronous host engine bfs_layered (the
+device engines' reference), and the routing to the device engines on the
+device of device.py (MC_DEVICE_BFS: ops/bfs_dense.py by default,
+ops/bfs_device.py under MC_DEVICE_BFS_ENGINE=probe). k-mers are oriented
+2-bit codes; coverage probes are vectorized lookups into the k-mer map.
 
 Semantics preserved exactly (set-wise) vs. the Java engine:
 - BFS states are ORIENTED k-mers (Java keys distanceToKmer by the literal
@@ -16,8 +17,11 @@ Semantics preserved exactly (set-wise) vs. the Java engine:
 - admission: neighbor count >= minOccurences AND TerminationMode.allowsAddition
   (not already visited; distance <= maxradius; |visited| < maxkmers)
   (runBfs:198-213, TerminationMode.allowsAddition:31-47)
-- the FIFO engine keeps the Java queue order, so the admission-order
-  dependent MAX_KMERS cap (TerminationMode.java:38-39) is exact
+- MAX_RADIUS is order-independent under layer-synchronous BFS (FIFO
+  distances are layer distances), so the layered and device engines give
+  the FIFO's visited set; the FIFO engine keeps the Java queue order, so the
+  admission-order dependent MAX_KMERS cap (TerminationMode.java:38-39) and
+  lastKmers are exact there, and only there
 - lastKmers: a k-mer is recorded when one of its coverage-eligible neighbors is
   NOT admitted at its expansion (runBfs:209)
 - trimPaths: reverse BFS from lastKmers restricted to visited states
@@ -29,13 +33,17 @@ Semantics preserved exactly (set-wise) vs. the Java engine:
 """
 from __future__ import annotations
 
+import logging
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
 
 from ..kmer_map import KmerMap
 from ..dna import revcomp_codes_np
+
+logger = logging.getLogger("metacherchant")
 
 _M5 = np.uint64(0x5555555555555555)
 
@@ -102,6 +110,54 @@ class BfsResult:
     visited: np.ndarray          # oriented codes, sorted
     last_kmers: np.ndarray       # oriented codes (for trim), sorted unique
     fail: bool = False
+
+
+def bfs_layered(seeds: np.ndarray, kmap: KmerMap, k: int, min_occ: int,
+                direction: int, max_radius: int | None,
+                collect_last: bool = False) -> BfsResult:
+    """Layer-synchronous BFS over oriented codes (no MAX_KMERS cap).
+
+    Matches runBfs (OneSequenceCalculator.java:159-239) set-for-set; the
+    device engines' reference."""
+    if seeds.size == 0:
+        return BfsResult(np.empty(0, np.int64), np.empty(0, np.int64), fail=True)
+    visited = np.unique(seeds.astype(np.int64))
+    frontier = visited
+    last: list[np.ndarray] = []
+    d = 0
+    while frontier.size:
+        d += 1
+        cand = neighbors_codes(frontier, k, direction)     # (F, D)
+        occs = kmap.get_many(canonical_codes(cand, k))
+        eligible = occs >= min_occ
+        if max_radius is not None and d > max_radius:
+            if collect_last:
+                last.append(frontier[eligible.any(axis=1)])
+            break
+        seen = _in_sorted(visited, cand)
+        fresh = eligible & ~seen
+        new = np.unique(cand[fresh])
+        if collect_last:
+            # parent flagged if an eligible neighbor was already visited, or a
+            # fresh neighbor is admitted "by" a lower-positioned parent
+            flag = (eligible & seen).any(axis=1)
+            if new.size:
+                rows, cols = np.nonzero(fresh)
+                nk = cand[rows, cols]
+                order = np.lexsort((rows, nk))
+                nk_s, rows_s = nk[order], rows[order]
+                first = np.concatenate([[True], nk_s[1:] != nk_s[:-1]])
+                # min parent row per fresh key
+                grp = np.cumsum(first) - 1
+                min_row = np.minimum.reduceat(rows_s, np.flatnonzero(first))
+                flag[np.unique(rows_s[rows_s != min_row[grp]])] = True
+            last.append(frontier[flag])
+        if new.size == 0:
+            break
+        visited = np.union1d(visited, new)
+        frontier = new
+    last_arr = np.unique(np.concatenate(last)) if last else np.empty(0, np.int64)
+    return BfsResult(visited, last_arr)
 
 
 def bfs_fifo(seed_list: list[int], kmap: KmerMap, k: int, min_occ: int,
@@ -197,15 +253,34 @@ def trim_paths(visited: np.ndarray, last_kmers: np.ndarray, k: int,
     return reached
 
 
-def refuse_device_bfs() -> None:
-    """The JAX package's device BFS engines (ops/bfs_dense.py,
-    ops/bfs_device.py) are not ported: a request for them is an error, not
-    a silent host run."""
-    if (os.environ.get("MC_DEVICE_BFS") not in (None, "", "0")
-            or os.environ.get("MC_DEVICE_BFS_MIN_SEEDS")):
-        raise NotImplementedError(
-            "device BFS engines not yet ported; unset MC_DEVICE_BFS and "
-            "MC_DEVICE_BFS_MIN_SEEDS")
+def route_device_bfs(n_seeds: int, max_radius: int | None,
+                     max_kmers: int | None, trim: bool) -> bool:
+    """Engine routing, the JAX package's policy: host FIFO (native C++) or a
+    device engine. MAX_KMERS and trim are admission-order dependent
+    (TerminationMode.java:38-39) and stay on the host. MC_DEVICE_BFS=0 or
+    unset runs the host FIFO, any other value a device engine. With
+    MC_DEVICE_BFS unset, an explicit MC_DEVICE_BFS_MIN_SEEDS routes runs of
+    at least that many seeds and a radius of at most MC_DEVICE_BFS_MAX_RADIUS
+    (default 2000) to the device; there is no default threshold. min_occ is
+    not consulted (ROADMAP C5(b)): the dense engine raises on min_occ < 0."""
+    if max_kmers is not None or trim:
+        return False
+    flag = os.environ.get("MC_DEVICE_BFS")
+    if flag == "0":
+        return False
+    if flag:
+        return True
+    if max_radius is None:
+        return False
+    min_seeds_env = os.environ.get("MC_DEVICE_BFS_MIN_SEEDS")
+    if min_seeds_env is None:
+        return False
+    max_r = int(os.environ.get("MC_DEVICE_BFS_MAX_RADIUS", "2000"))
+    return n_seeds >= int(min_seeds_env) and max_radius <= max_r
+
+
+def _probe_engine() -> bool:
+    return os.environ.get("MC_DEVICE_BFS_ENGINE", "dense") == "probe"
 
 
 @dataclass
@@ -255,17 +330,47 @@ def build_environment(sequences: list[str], k: int, kmap: KmerMap,
     sequences: gene sequences (1 for single mode, N for merged mode);
     hic_sequences: extra seed sequences in merged mode (runBfs:181-191).
     """
-    refuse_device_bfs()
     seeds = seed_codes_of_sequences(
         list(sequences) + list(hic_sequences or []), k, kmap, min_occ)
     dirs = [0] if both_directions else [-1, 1]
     visited_union = np.empty(0, np.int64)
     fail = True
+    use_device = bool(seeds) and route_device_bfs(len(seeds), max_radius,
+                                                  max_kmers, trim)
+    probe = use_device and _probe_engine()
+    if use_device:
+        from ..device import device
+        dev = device()
+        if probe:
+            # one probe table for both direction passes (the dense engine
+            # caches its adjacency per map and device instead)
+            from ..ops.hashtable import DeviceHashTable
+            table = DeviceHashTable.from_kmer_map(kmap, dev)
     for direction in dirs:
-        res = bfs_fifo(seeds, kmap, k, min_occ, direction,
-                       max_radius, max_kmers, collect_last=trim)
+        t0 = time.perf_counter()
+        if not use_device:
+            res = bfs_fifo(seeds, kmap, k, min_occ, direction,
+                           max_radius, max_kmers, collect_last=trim)
+            engine = "host FIFO"
+        else:
+            # radius-only termination: the device engines give the FIFO's
+            # visited set; no lastKmers (trim stays on the host)
+            sarr = np.array(seeds, np.int64)
+            if probe:
+                from ..ops.bfs_device import run_device_bfs
+                vis = run_device_bfs(sarr, table, k, min_occ, direction,
+                                     max_radius, device=dev)
+                engine = "probe device"
+            else:
+                from ..ops.bfs_dense import run_dense_bfs
+                vis = run_dense_bfs(sarr, kmap, k, min_occ, direction,
+                                    max_radius, device=dev)
+                engine = "dense device"
+            res = BfsResult(vis, np.empty(0, np.int64))
         if res.fail:
             continue
+        logger.debug("%s BFS, direction %d: %d visited in %.3f s", engine,
+                     direction, res.visited.size, time.perf_counter() - t0)
         fail = False
         vis = res.visited
         if trim:

@@ -20,17 +20,23 @@ getKmerKey(s) = hasher.hash(normalizeDna(s)) == hasher.hash(s): both poly and
 FNV-1a hashes are orientation-invariant (min of fw/rc), so normalization
 before hashing is redundant -- replicated here by hashing the state directly.
 
-The JAX package's device engine (ops/bfs_hashed.py) is not ported yet;
-asking for it (MC_DEVICE_BFS, MC_DEVICE_BFS_MIN_SEEDS) raises.
+Under MC_DEVICE_BFS (routing as the exact regime's, route_device_bfs) the
+multiword device engine ops/bfs_hashed.py runs instead, on the device of
+device.py; radius-only termination gives the FIFO's visited set.
 """
 from __future__ import annotations
+
+import logging
+import time
 
 import numpy as np
 
 from ..kmer_map import KmerMap
 from ..dna import CODE_TO_CHAR, encode
 from ..ops.kmers import hash_codes_np
-from .environment import Environment, refuse_device_bfs
+from .environment import Environment, route_device_bfs
+
+logger = logging.getLogger("metacherchant")
 
 _NUCS = "AGCT"  # neighbor generation order (itmo:dna/DnaTools.java:33)
 
@@ -104,7 +110,6 @@ def build_environment_hashed(sequences: list[str], k: int, kmap: KmerMap,
                              both_directions: bool, max_radius: int | None,
                              max_kmers: int | None, trim: bool,
                              hic_sequences: list[str] | None = None) -> Environment:
-    refuse_device_bfs()
     # Seeds: every k-window of every input sequence with count >= min_occ,
     # in order (runBfs seed loop, OneSequenceCalculator.java:159-196).
     seed_rows: list[np.ndarray] = []
@@ -116,13 +121,23 @@ def build_environment_hashed(sequences: list[str], k: int, kmap: KmerMap,
         occ = _occ_block(kmap, wins, hasher)
         seed_rows.extend(wins[occ >= min_occ])
     dirs = [0] if both_directions else [-1, 1]
+    use_device = route_device_bfs(len(seed_rows), max_radius, max_kmers, trim)
     union: dict[bytes, np.ndarray] = {}
     fail = True
     for direction in dirs:
         if not seed_rows:
             continue
         fail = False
-        if _native_bfs_available():
+        t0 = time.perf_counter()
+        n_before = len(union)
+        if use_device:
+            from ..device import device
+            from ..ops.bfs_hashed import run_device_bfs_hashed
+            rows = run_device_bfs_hashed(np.stack(seed_rows), kmap, k,
+                                         min_occ, hasher, direction,
+                                         max_radius, device=device())
+            union.update({row.tobytes(): row for row in rows})
+        elif _native_bfs_available():
             # C++ FIFO engine (native/bfs.cpp): exact admission semantics for
             # BOTH hash regimes (incl. FNV-1a, which has no sliding form)
             from .. import native
@@ -138,6 +153,10 @@ def build_environment_hashed(sequences: list[str], k: int, kmap: KmerMap,
             visited = _bfs_layer_fifo(seed_rows, kmap, k, min_occ, hasher,
                                       direction, max_radius, max_kmers, trim)
             union.update(visited)
+        logger.debug("%s BFS, direction %d: union of %d states after %d, "
+                     "%.3f s", "multiword device" if use_device else
+                     "host FIFO", direction, len(union), n_before,
+                     time.perf_counter() - t0)
     if fail:
         return Environment(k, np.empty(0, np.int64), np.empty(0, np.int32), fail=True)
 

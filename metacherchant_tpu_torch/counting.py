@@ -1,8 +1,9 @@
 """K-mer counting: stream reads -> device extraction -> device counter.
 
-Counterpart of metacherchant_tpu/counting.py for the `sort` engine, in the
-exact (k <= 31) and hashed (k > 31 or --forcehash, src/io/LargeKIOUtils.java
-:40-88) regimes, counted by ops/sortcount.StreamCounter. Long fragments are
+Counterpart of metacherchant_tpu/counting.py for the `sort` engine
+(ops/sortcount.StreamCounter) and the `hash` engine (ops/hashtable
+.DeviceHashTable), in the exact (k <= 31) and hashed (k > 31 or --forcehash,
+src/io/LargeKIOUtils.java:40-88) regimes. Long fragments are
 chunked with k-1 overlap so every window is counted once. With the native
 parser, exact keys come from ragged rows: per launch one contiguous slice of
 the parsed codes and its chunk table go to the device, and only real
@@ -25,6 +26,7 @@ from .io.readers import iter_reads_split
 from .kmer_map import KmerMap
 from .ops.kmers import hash_codes_np, pack_reads
 from .ops.extract_cuda import row_offsets
+from .ops.hashtable import DeviceHashTable
 from .ops.sortcount import StreamCounter
 
 logger = logging.getLogger("metacherchant")
@@ -33,7 +35,7 @@ DEFAULT_BATCH = 4096
 DEFAULT_LEN = 256
 
 #: MC_COUNT_ENGINE values of the JAX package that the port does not have yet
-_UNPORTED_ENGINES = ("hash", "merge", "chunk", "sharded")
+_UNPORTED_ENGINES = ("merge", "chunk", "sharded")
 
 
 def _chunk_fragment(frag: np.ndarray, k: int, max_len: int) -> Iterator[np.ndarray]:
@@ -167,15 +169,16 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
     """Count canonical k-mers of all reads into a KmerMap on `device`;
     hasher None keys exactly, 'poly' or 'fnv1a' by hash.
 
-    engine: 'sort' (the default and, so far, the only ported engine).
-    Ingestion uses the native (C++) parser per file when available (ragged
-    rows for exact keys, packed batches for hashed ones), else the Python
-    per-fragment readers."""
+    engine: 'sort' (the default; append buffer + sorted store,
+    ops/sortcount.py) or 'hash' (open-addressing table, ops/hashtable.py);
+    both give the same map. Ingestion uses the native (C++) parser per file
+    when available (ragged rows for exact keys, packed batches for hashed
+    ones), else the Python per-fragment readers."""
     engine = engine or os.environ.get("MC_COUNT_ENGINE", "sort")
     if engine in _UNPORTED_ENGINES:
         raise NotImplementedError(
-            f"MC_COUNT_ENGINE={engine!r} not yet ported; use 'sort'")
-    if engine != "sort":
+            f"MC_COUNT_ENGINE={engine!r} not yet ported; use 'sort' or 'hash'")
+    if engine not in ("sort", "hash"):
         raise ValueError(f"unknown counting engine {engine!r}")
     if batch == DEFAULT_BATCH and os.environ.get("MC_COUNT_BATCH"):
         batch = max(int(os.environ["MC_COUNT_BATCH"]), 64)
@@ -184,12 +187,19 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
         # clamp to k so a value left over from a smaller-k run can never
         # produce windowless batches
         max_len = max(int(os.environ["MC_COUNT_MAX_LEN"]), k, 64)
-    buffer_cap, store_cap = _sort_geometry(table_log2, batch, max_len)
-    counter = StreamCounter(device, buffer_cap=buffer_cap,
-                            store_cap=store_cap)
+    if engine == "hash":
+        table = DeviceHashTable(device, capacity_log2=table_log2)
+        add_codes, add_ragged = table.count_insert_codes, table.count_insert
+        finish = table.items_host
+    else:
+        buffer_cap, store_cap = _sort_geometry(table_log2, batch, max_len)
+        counter = StreamCounter(device, buffer_cap=buffer_cap,
+                                store_cap=store_cap)
+        add_codes, add_ragged = counter.add_codes, counter.add_ragged
+        finish = counter.finalize
 
     def sink(packed: np.ndarray) -> None:
-        counter.add_codes(torch.from_numpy(packed).to(device), k, hasher)
+        add_codes(torch.from_numpy(packed).to(device), k, hasher)
 
     from .progress import Progress
     files = [str(f) for f in files]
@@ -212,7 +222,7 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
             flush()  # keep batches file-aligned on the native path
             if hasher is None:
                 for *launch, n in _ragged_launches(chunks, batch, k, device):
-                    counter.add_ragged(*launch, n, k)
+                    add_ragged(*launch, n, k)
                     progress.update(batch)
             else:
                 for packed in _packed_batches(chunks, batch, max_len):
@@ -226,7 +236,7 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
         if os.path.exists(f):
             progress.advance_bytes(os.path.getsize(f))
     flush()
-    keys, counts = counter.finalize()
+    keys, counts = finish()
     logger.debug("k-mers HM size = %d", len(keys))
     return KmerMap(keys, counts)
 

@@ -22,7 +22,9 @@ run of valid codes is >= k; every other position carries SENTINEL.
 
 exact_canonical_kmers is the plain version of the CUDA extraction kernel
 (ops/extract_cuda.py) and runs on any device; hash_canonical_kmers is plain
-torch on any device.
+torch on any device; canonical_kmers dispatches between the kernel and
+hash_canonical_kmers as the JAX package's canonical_kmers does (its
+MC_PALLAS_EXTRACT switch is a TPU's and is not read here).
 """
 from __future__ import annotations
 
@@ -147,6 +149,27 @@ def hash_canonical_kmers(codes: torch.Tensor, k: int, hash_name: str
     ok = _valid_window_mask(codes, k)
     keys = torch.roll(keys_start, k - 1, dims=1)
     return keys.masked_fill_(~ok, SENTINEL), ok
+
+
+def canonical_kmers(codes: torch.Tensor, k: int, hasher: str | None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keys of a (B, L) code batch per the reference's regime selection
+    (src/tools/EnvironmentFinderMain.java:127-154), as the JAX dispatch:
+    hasher None -> exact keys from B1 (the CUDA kernel of ops/extract_cuda
+    on a CUDA tensor, its plain version on a CPU one), else
+    hash_canonical_kmers. Returns ((B, L) int64 keys, SENTINEL where no
+    window ends, (B, L) validity)."""
+    if hasher is not None:
+        return hash_canonical_kmers(codes, k, hasher)
+    from .extract_cuda import extract_append
+    B, L = codes.shape
+    keys = torch.full((B, L), SENTINEL, dtype=torch.int64, device=codes.device)
+    if L >= k and B:
+        out = torch.empty(B * (L - k + 1), dtype=torch.int64,
+                          device=codes.device)
+        extract_append(codes.to(torch.int8).contiguous(), k, out)
+        keys[:, k - 1:] = out.view(B, L - k + 1)
+    return keys, keys != SENTINEL
 
 
 # ---------------------------------------------------------------------------

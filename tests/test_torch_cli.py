@@ -169,15 +169,36 @@ def test_device_contract_byte_identical_to_jax(data, k, extra, env, tmp_path,
     (21, (), {"MC_DEVICE_BFS": "1"}),
     (55, (), {"MC_DEVICE_BFS": "1"}),
     (21, (), {"MC_COUNT_ENGINE": "hash"}),
-], ids=["device-bfs", "device-bfs-hashed", "hash-engine"])
-def test_unported_paths_fail_clearly(recipe, k, extra, env, tmp_path,
-                                     monkeypatch):
+    (21, ("--bothdirs",), {"MC_DEVICE_BFS": "1",
+                           "MC_DEVICE_BFS_ENGINE": "probe"}),
+], ids=["device-bfs", "device-bfs-hashed", "hash-engine", "device-bfs-probe"])
+def test_unported_paths_fail_clearly(recipe, long_recipe, k, extra, env,
+                                     tmp_path, monkeypatch):
+    """The paths the port once refused (the device BFS engines in both
+    regimes, the hash counting engine) now run: byte-identical to the JAX
+    package under the same switches."""
     monkeypatch.setenv("MC_PLATFORM", "cpu")
     for name, value in env.items():
         monkeypatch.setenv(name, value)
-    rc = port_main(_args(recipe, k, tmp_path / "out", tmp_path / "wd",
-                         *extra))
-    assert rc == 1
+    data = long_recipe if k > 31 else recipe
+    assert jax_main(_args(data, k, tmp_path / "oj", tmp_path / "wj",
+                          *extra)) == 0
+    assert port_main(_args(data, k, tmp_path / "ot", tmp_path / "wt",
+                           *extra)) == 0
+    got, want = _tree(tmp_path / "ot"), _tree(tmp_path / "oj")
+    assert sorted(got) == sorted(want) and len(got) == 10
+    for name in want:
+        assert got[name] == want[name], name
+    assert "not yet ported" not in _log(tmp_path / "wt")
+    assert os.path.exists(tmp_path / "wt" / "SUCCESS")
+
+
+@pytest.mark.parametrize("engine", ["merge", "chunk", "sharded"])
+def test_other_count_engines_still_fail_clearly(recipe, engine, tmp_path,
+                                                monkeypatch):
+    monkeypatch.setenv("MC_PLATFORM", "cpu")
+    monkeypatch.setenv("MC_COUNT_ENGINE", engine)
+    assert port_main(_args(recipe, 21, tmp_path / "out", tmp_path / "wd")) == 1
     assert "not yet ported" in _log(tmp_path / "wd")
     assert not os.path.exists(tmp_path / "wd" / "SUCCESS")
 

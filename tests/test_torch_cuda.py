@@ -1,9 +1,10 @@
 """Tests of the port that need a CUDA GPU: the extraction kernel against its
-plain torch version on the card, the hashed keys, the map lookup and the
-device contraction on the card against the CPU, the device classify coverage
-against the host one (reads-classifier's and triple-reads-classifier's), and
-the main path on the card against the host oracle and against the same run
-on the CPU.
+plain torch version on the card, the hashed keys, the map lookup, the device
+contraction, the hash table and the device BFS engines on the card against
+the CPU, the multiword visited set's slot election under contention, the
+device classify coverage against the host one (reads-classifier's and
+triple-reads-classifier's), and the main path on the card against the host
+oracle and against the same run on the CPU.
 
 They skip where torch sees no CUDA device. This file imports no JAX, so it
 also runs on a machine without it (tests/conftest.py imports JAX, hence
@@ -373,6 +374,150 @@ def test_device_contract_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
         monkeypatch.setenv("MC_PLATFORM", platform)
         out = tmp_path / f"out_{platform}"
         assert port_main(["-t", "environment-finder", "-k", "31",
+                          "-i", reads, "--seq", str(genes), "-o", str(out),
+                          "--coverage", "2", "--maxradius", "300",
+                          "--work-dir", str(tmp_path / f"wd_{platform}")]) == 0
+        trees[platform] = {
+            os.path.relpath(os.path.join(d, n), out): Path(d, n).read_bytes()
+            for d, _, names in os.walk(out) for n in names}
+    assert trees["cuda"] and trees["cuda"] == trees["cpu"]
+
+
+def test_hash_table_on_card_matches_cpu(cuda):
+    """Duplicates, keys with bit 63 set, saturation and growth from 2^6
+    slots: the card's contents and lookups equal the CPU's."""
+    from metacherchant_tpu_torch.ops.hashtable import DeviceHashTable
+    rng = np.random.default_rng(7)
+    pool = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max,
+                        50_000, dtype=np.int64)
+    batches = [rng.choice(pool, 200_000) for _ in range(4)]
+    batches.append(np.full(40_000, 42, np.int64))
+    tables = {}
+    for dev in (cuda, torch.device("cpu")):
+        t = DeviceHashTable(dev, capacity_log2=6)
+        for b in batches:
+            t.insert_batch(torch.from_numpy(b).to(dev))
+        tables[dev.type] = t
+    got, want = tables["cuda"].items_host(), tables["cpu"].items_host()
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert tables["cuda"].size == want[0].size and want[1].max() == 32767
+    q = np.concatenate([pool[::3], rng.integers(0, 1 << 62, 10_000),
+                        [SENTINEL]])
+    assert np.array_equal(
+        tables["cuda"].lookup(torch.from_numpy(q).to(cuda)).cpu().numpy(),
+        tables["cpu"].lookup(torch.from_numpy(q)).numpy())
+
+
+@pytest.mark.parametrize("k,hasher", [(31, None), (55, "poly")])
+def test_hash_engine_on_card_matches_sort(cuda, k, hasher, tmp_path,
+                                         monkeypatch):
+    """MC_COUNT_ENGINE=hash on the card: the sort engine's map; exact keys
+    go through the kernel's ragged entry as often as the sort engine's."""
+    path = str(tmp_path / "reads.fastq")
+    _write_fastq(path, 9)
+    geom = dict(batch=256, max_len=128, table_log2=10)
+    launches = []
+    for engine in ("sort", "hash"):
+        monkeypatch.setenv("MC_COUNT_ENGINE", engine)
+        before = extract_cuda.LAUNCHES
+        got = count_kmers_device([path], k, hasher, device=cuda, **geom)
+        launches.append(extract_cuda.LAUNCHES - before)
+        if engine == "sort":
+            want = got
+    assert launches[0] == launches[1]
+    assert (launches[1] > 0) == (hasher is None)
+    assert np.array_equal(got.keys, want.keys)
+    assert np.array_equal(got.counts, want.counts)
+
+
+def test_multiword_set_election_many_rows_on_few_slots(cuda):
+    """Rows of three words, 30,000 of them into 2^15 slots at once, then
+    duplicates and more rows: every used slot holds a row that was
+    inserted (no torn row made of two claimants' words) and each row lands
+    exactly once."""
+    from metacherchant_tpu_torch.ops import bfs_hashed as TM
+    rng = np.random.default_rng(11)
+    rows = np.unique(rng.integers(np.iinfo(np.int64).min,
+                                  np.iinfo(np.int64).max, (31_000, 3),
+                                  dtype=np.int64), axis=0)[:30_000]
+    # rows sharing two of three words make a torn row a real row's twin
+    rows[1::2, :2] = rows[0::2, :2]
+    rows = np.unique(rows, axis=0)
+    skeys = torch.zeros((1 << 15, 3), dtype=torch.int64, device=cuda)
+    owner = torch.full((1 << 15,), -1, dtype=torch.int32, device=cuda)
+    d = torch.from_numpy(rows).to(cuda)
+    half = rows.shape[0] // 2
+    new, won = TM._mwset_insert(skeys, owner, d[:half])
+    assert new == half and bool(won.all())
+    new, won = TM._mwset_insert(skeys, owner, d)
+    assert new == rows.shape[0] - half
+    assert np.array_equal(won.cpu().numpy(), np.arange(rows.shape[0]) >= half)
+    held = skeys[owner >= 0].cpu().numpy()
+    assert held.shape[0] == rows.shape[0]
+    assert np.array_equal(np.unique(held, axis=0), rows)
+
+
+@pytest.mark.parametrize("engine", ["dense", "probe", "multiword"])
+def test_device_bfs_on_card_matches_cpu(cuda, engine):
+    """Each engine on the card against the same engine on the CPU, for
+    every direction, bounded and unbounded."""
+    from metacherchant_tpu_torch.ops import bfs_dense, bfs_device, bfs_hashed
+    from metacherchant_tpu_torch.algo.environment import (
+        seed_codes_of_sequences)
+    rng = np.random.default_rng(12)
+    genome = "".join(rng.choice(list("ACGT"), 20_000))
+    fasta_reads = [genome[s:s + 150] for s in rng.integers(0, 19_850, 2000)]
+    k = 33 if engine == "multiword" else 21
+    hasher = "fnv1a" if engine == "multiword" else None
+    from metacherchant_tpu_torch.counting import _count_codes_into
+    from metacherchant_tpu_torch.dna import encode
+    counts: dict[int, int] = {}
+    for r in fasta_reads:
+        _count_codes_into(counts, encode(r), k, hasher)
+    kmap = KmerMap.from_dict(counts)
+    gene = genome[5000:5600]
+    for direction in (-1, 0, 1):
+        for mr in (None, 40):
+            outs = []
+            for dev in (cuda, torch.device("cpu")):
+                if engine == "multiword":
+                    wins = np.lib.stride_tricks.sliding_window_view(
+                        encode(gene), k).astype(np.uint8)
+                    got = bfs_hashed.run_device_bfs_hashed(
+                        wins, kmap, k, 2, hasher, direction, mr, device=dev)
+                    outs.append({r.tobytes() for r in got})
+                    continue
+                seeds = np.array(seed_codes_of_sequences([gene], k, kmap, 2),
+                                 np.int64)
+                run = (bfs_dense.run_dense_bfs if engine == "dense"
+                       else bfs_device.run_device_bfs)
+                outs.append(run(seeds, kmap, k, 2, direction, mr,
+                                device=dev).tobytes())
+            assert outs[0] == outs[1] and len(outs[0]) > 600
+
+
+@pytest.mark.parametrize("k,env", [
+    (31, {"MC_DEVICE_BFS": "1"}),
+    (31, {"MC_DEVICE_BFS": "1", "MC_DEVICE_BFS_ENGINE": "probe"}),
+    (31, {"MC_COUNT_ENGINE": "hash"}),
+    (55, {"MC_DEVICE_BFS": "1"}),
+], ids=["dense", "probe", "hash-engine", "multiword"])
+def test_device_engines_cli_on_card_matches_cpu(cuda, k, env, tmp_path,
+                                                monkeypatch):
+    reads = str(tmp_path / "reads.fastq")
+    _write_fastq(reads, 13)
+    genes = tmp_path / "genes.fasta"
+    with open(reads) as fh:
+        fh.readline()
+        seq = fh.readline().strip()
+    genes.write_text(f">g1\n{seq.replace('N', 'A')}\n")
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    trees = {}
+    for platform in ("cuda", "cpu"):
+        monkeypatch.setenv("MC_PLATFORM", platform)
+        out = tmp_path / f"out_{platform}"
+        assert port_main(["-t", "environment-finder", "-k", str(k),
                           "-i", reads, "--seq", str(genes), "-o", str(out),
                           "--coverage", "2", "--maxradius", "300",
                           "--work-dir", str(tmp_path / f"wd_{platform}")]) == 0

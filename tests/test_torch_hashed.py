@@ -15,6 +15,7 @@ from metacherchant_tpu.counting import count_sequences_host
 from metacherchant_tpu.dna import encode, reverse_complement
 from metacherchant_tpu.kmer_map import KmerMap as JaxKmerMap
 from metacherchant_tpu_torch import native
+from metacherchant_tpu_torch.algo import environment as TE
 from metacherchant_tpu_torch.algo import environment_hashed as TH
 from metacherchant_tpu_torch.kmer_map import KmerMap
 
@@ -170,10 +171,15 @@ def test_forcehash_small_k_equals_exact_regime():
 
 @pytest.mark.parametrize("var", ["MC_DEVICE_BFS", "MC_DEVICE_BFS_MIN_SEEDS"])
 def test_device_bfs_request_raises(var, monkeypatch):
-    """The JAX package's device BFS engine (ops/bfs_hashed.py) is not
-    ported: asking for it is an error, never a silent host run."""
-    gene, _, tm = _setup(1, 33, "poly")
+    """Asking for the device BFS (ops/bfs_hashed.py, once refused) now gives
+    the JAX package's environment under the same switch: MC_DEVICE_BFS runs
+    the multiword engine, MC_DEVICE_BFS_MIN_SEEDS=1 routes this radius-7
+    run to it."""
+    gene, jm, tm = _setup(1, 33, "poly")
+    monkeypatch.setenv("MC_PLATFORM", "cpu")
     monkeypatch.setenv(var, "1")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TH.build_environment_hashed([gene], 33, tm, 1, "poly",
-                                    **CFGS[0])
+    assert TE.route_device_bfs(10, 7, None, False)
+    want = JH.build_environment_hashed([gene], 33, jm, 1, "poly", **CFGS[2])
+    got = TH.build_environment_hashed([gene], 33, tm, 1, "poly", **CFGS[2])
+    assert not want.fail and len(want.as_dict()) > 10
+    _same_env(got, want)

@@ -112,3 +112,27 @@ def test_triple_seq_cov_and_fmt_tools_run_without_jax(tmp_path):
     for name in ("fmt/donor.gfa", "fmt/after.gfa", "comp/after/comp0.gfa",
                  "rec/after/comp_1.gfa"):
         assert "\tCL:Z:" in (out / name).read_text(), name
+
+
+def test_device_engines_run_without_jax(tmp_path):
+    """environment-finder under MC_DEVICE_BFS (dense engine at k = 21, the
+    multiword engine at k = 33) with the hash counting engine, then under
+    the probe engine."""
+    g, reads = _reads(tmp_path)
+    genes = tmp_path / "genes.fasta"
+    genes.write_text(f">geneA\n{g[1000:1120]}\n")
+    out = tmp_path / "out"
+
+    def args(k: int, name: str) -> list[str]:
+        return ["-t", "environment-finder", "-k", str(k), "-i", str(reads),
+                "--seq", str(genes), "-o", str(out / name), "--coverage", "3",
+                "--maxradius", "100", "--work-dir", str(tmp_path / name)]
+
+    _run(args(21, "dense") + ["::"] + args(33, "multiword"),
+         env={"MC_DEVICE_BFS": "1", "MC_COUNT_ENGINE": "hash"})
+    _run(args(21, "probe"), env={"MC_DEVICE_BFS": "1",
+                                 "MC_DEVICE_BFS_ENGINE": "probe"})
+    for name in ("dense", "multiword", "probe"):
+        assert (out / name / "geneA" / "graph.txt").stat().st_size > 0
+    assert (out / "dense" / "geneA" / "graph.txt").read_bytes() == \
+        (out / "probe" / "geneA" / "graph.txt").read_bytes()
