@@ -4,9 +4,10 @@
 
 Drives metacherchant_tpu_torch's paths (environment-finder in the exact and
 hashed regimes, kmer-counter -> reads-classifier, triple-reads-classifier,
-seq-cov, the three FMT tools, the device contraction, the device BFS
-engines, the `sort` and `hash` counting engines) at a real data size and
-checks them:
+seq-cov, the three FMT tools, environment-assembler-finder, hic-pipeline,
+environment-finder-multi, the device contraction, the device BFS engines,
+the `sort` and `hash` counting engines) at a real data size and checks
+them:
 
   1. device         the card's name and power limit;
   2. build          the CUDA extraction kernel (nvcc, sm_90a) and the native
@@ -70,7 +71,23 @@ checks them:
                     recipient-visualiser on three genes, and on a 20 kbp set
                     of error-free reads fmt-visualizer -k 31 and
                     fmt-visualiser -k 55 on the card against the CPU, byte
-                    for byte.
+                    for byte;
+ 15. assembler      environment-assembler-finder -k 31 on the reads of phase
+                    5 for the first gene, with a stub megahit: stage 1 alone
+                    (--finish environment), then stages 2-3 (--start
+                    assembly, stage 3 at k=55), then a --continue run that
+                    skips; stage 1's graph.txt against the slice's; the read
+                    filter alone over the reads, against the tool's
+                    cutReads0.fasta; a small run on the card against the CPU;
+ 16. hic            hic-pipeline -k 31 on the reads of phase 5 for the first
+                    gene with 3,000 Hi-C pairs of its genome, a stub bwa and
+                    an inert samtools: pass 1 against a direct
+                    environment-finder --merge run, the contact map, B1
+                    launches per pass; a small run on the card against the
+                    CPU;
+ 17. multi          environment-finder-multi on four and on two k=31
+                    graph.txt files of the first gene that phases 5, 15 and
+                    16 wrote: colors, Jaccard diagonals, k-mer coverage.
 
 Every phase prints its own lines and its seconds; any failure exits
 non-zero. The last two lines are the kernels' JSON record and the device
@@ -118,6 +135,11 @@ WIDE_GENOME, WIDE_SEEDS, WIDE_RADIUS = 400_000, 65_536, 50
 PROBE_LOG2, PROBE_KEYS = 25, 21_560_000
 #: the JAX package's DeviceHashTable insert-round bound (hashtable.py:63)
 JAX_PROBE_ROUNDS = 128
+#: environment-assembler-finder's stage 3 k (tools/environment_assembler_finder.py)
+REENV_K = 55
+ASM_PF = 10
+#: Hi-C pairs of the first gene's genome; the stub bwa selects every third
+HIC_PAIRS = 3000
 
 
 class SmokeFailure(Exception):
@@ -401,27 +423,37 @@ def tree(root: str) -> dict[str, bytes]:
 
 
 class _Stamps(logging.Handler):
+    """Each log record's time, message and the kernel's launch count."""
+
     def __init__(self):
+        from metacherchant_tpu_torch.ops import extract_cuda
         super().__init__()
-        self.records: list[tuple[float, str]] = []
+        self.kernel = extract_cuda
+        self.records: list[tuple[float, str, int]] = []
 
     def emit(self, record):
-        self.records.append((time.perf_counter(), record.getMessage()))
+        self.records.append((time.perf_counter(), record.getMessage(),
+                             self.kernel.LAUNCHES))
 
 
 class Run:
     """One drive of runner.main: seconds, kernel launches, log lines with
-    their seconds from the start."""
+    their seconds from the start, and the launches counted by each line."""
 
     def __init__(self, seconds: float, launches: int,
-                 log: list[tuple[float, str]]):
+                 log: list[tuple[float, str]], counts: list[int]):
         self.seconds, self.launches, self.log = seconds, launches, log
+        self.counts = counts
 
     def line(self, prefix: str) -> tuple[float, str]:
         hits = [(t, m) for t, m in self.log if m.startswith(prefix)]
         check(len(hits) == 1, f"expected one {prefix!r} log line, got "
                               f"{len(hits)}")
         return hits[0]
+
+    def launches_at(self, prefix: str) -> list[int]:
+        return [n for (_, m), n in zip(self.log, self.counts)
+                if m.startswith(prefix)]
 
 
 def bfs_lines(phase: str, run: Run) -> None:
@@ -461,7 +493,8 @@ def drive(argv: list[str], **env: str) -> Run:
                 os.environ[name] = value
     check(rc == 0, f"{' '.join(argv[:2])} rc={rc} ({env})")
     return Run(seconds, launches,
-               [(t - t0, m) for t, m in stamps.records])
+               [(t - t0, m) for t, m, _ in stamps.records],
+               [n for _, _, n in stamps.records])
 
 
 def phase_oracle(rng, genomes: np.ndarray, tmp: str) -> str:
@@ -1442,6 +1475,320 @@ def phase_fmt(rng, tmp: str, card: str) -> tuple[int, int]:
     return launches["device"], recipient
 
 
+# the stub bwa of tests/test_hic_pipeline.py: 'index' is a no-op, 'mem'
+# maps mate pairs to alternating contigs of the reference, every third pair
+# with its first mate unmapped
+BWA_STUB = r'''#!/usr/bin/env python3
+"""Stub bwa: 'index' is a no-op; 'mem' emits a deterministic SAM that maps
+each mate pair to alternating reference contigs (by FASTA order)."""
+import sys
+
+def contigs(path):
+    names = []
+    for line in open(path):
+        if line.startswith(">"):
+            names.append(line[1:].split()[0].strip())
+    return names
+
+if sys.argv[1] == "index":
+    sys.exit(0)
+assert sys.argv[1] == "mem"
+args = [a for a in sys.argv[2:] if a != "-t" and not a.isdigit()]
+ref, r1, r2 = args[0], args[1], args[2]
+names = contigs(ref) or ["c0"]
+
+def reads(path):
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return [(lines[i][1:], lines[i + 1]) for i in range(0, len(lines), 4)]
+
+print("@HD\tVN:1.6")
+for n in names:
+    print(f"@SQ\tSN:{n}\tLN:1000")
+pairs = list(zip(reads(r1), reads(r2)))
+for i, ((n1, s1), (n2, s2)) in enumerate(pairs):
+    c1 = names[i % len(names)]
+    c2 = names[(i + 1) % len(names)]
+    if i % 3 == 0:
+        # first mate UNMAPPED with mapped mate (0x1|0x4|0x40 = 69): the
+        # -f 0x5 -F 0x908 selection target; second carries mate-unmapped
+        print(f"{n1}\t69\t*\t0\t0\t*\t{c2}\t1\t0\t{s1}\t*")
+        print(f"{n2}\t137\t{c2}\t1\t60\t{len(s2)}M\t*\t0\t0\t{s2}\t*")
+    else:
+        # both mates mapped to DIFFERENT contigs (contact-map rows)
+        print(f"{n1}\t65\t{c1}\t1\t60\t{len(s1)}M\t{c2}\t1\t0\t{s1}\t*")
+        print(f"{n2}\t129\t{c2}\t1\t60\t{len(s2)}M\t{c1}\t1\t0\t{s2}\t*")
+'''
+
+#: a stub megahit: copies its --12 reads to <-o>/final.contigs.fa
+MEGAHIT_STUB = """
+import os, shutil, sys
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+os.makedirs(out, exist_ok=True)
+shutil.copyfile(args[args.index("--12") + 1],
+                os.path.join(out, "final.contigs.fa"))
+"""
+
+
+def write_stub(path: str, text: str) -> None:
+    with open(path, "w") as fh:
+        fh.write(text)
+    os.chmod(path, 0o755)
+
+
+def first_gene(genes: str, tmp: str) -> str:
+    """A FASTA of the first gene of phase 5's genes."""
+    path = os.path.join(tmp, "gene1.fasta")
+    if not os.path.exists(path):
+        with open(genes) as fh:
+            header, seq = fh.readline(), fh.readline()
+        with open(path, "w") as fh:
+            fh.write(header + seq)
+    return path
+
+
+def work_tree(root: str) -> dict[str, bytes]:
+    """A work directory's files without its log files, its own path masked
+    (in.properties names it)."""
+    return {n: b.replace(root.encode(), b"<root>")
+            for n, b in tree(root).items()
+            if not os.path.basename(n).startswith("log")}
+
+
+def assembler_args(reads: str, gene: str, out: str, wd: str, stubs: str,
+                   coverage: int, radius: int) -> list[str]:
+    return ["-t", "environment-assembler-finder", "-k", str(MAIN_K),
+            "-i", reads, "--seq", gene, "--coverage", str(coverage),
+            "--maxradius", str(radius), "-pf", str(ASM_PF),
+            "--assembler", "megahit", "--assemblerpath", stubs, "-o", out,
+            "--work-dir", wd]
+
+
+def phase_assembler(fq: str, genes: str, small_fq: str, n_reads: int,
+                    tmp: str, card: str) -> dict[str, int]:
+    """The card takes the megahit route: the spades route runs `python` by
+    name, which the card's machine may lack. Returns the kernel launches of
+    stage 1 and of stages 2-3."""
+    from metacherchant_tpu_torch.algo.filter import (SubgraphChecker,
+                                                     filter_reads_file)
+    from metacherchant_tpu_torch.io.writers import load_graph_txt
+    stubs = os.path.join(tmp, "assembler")
+    os.makedirs(stubs)
+    write_stub(os.path.join(stubs, "megahit"),
+               f"#!{sys.executable}" + MEGAHIT_STUB)
+    gene = first_gene(genes, tmp)
+    out, wd = os.path.join(tmp, "asm"), os.path.join(tmp, "wda")
+    args = assembler_args(fq, gene, out, wd, stubs, 5, 1000)
+    stage1 = drive(args + ["--finish", "environment"])
+    later = drive(args + ["--start", "assembly"])
+    for name in ("SUCCESS.environment", "SUCCESS.assembly",
+                 "SUCCESS.re-environment", "SUCCESS", "out.properties"):
+        check(os.path.exists(os.path.join(wd, name)),
+              f"environment-assembler-finder left no {name}")
+    cut = os.path.join(out, "cutReads0.fasta")
+    with open(cut, "rb") as fh:
+        cut_bytes = fh.read()
+    kept = cut_bytes.count(b">")
+    check(kept > 0, "environment-assembler-finder: empty cutReads0.fasta")
+    with open(os.path.join(out, "result", "graph.txt")) as fh:
+        rows = [ln.split() for ln in fh]
+    check(bool(rows) and all(len(r[0]) == REENV_K for r in rows),
+          f"result/graph.txt does not hold {REENV_K}-mers")
+    with open(os.path.join(out, "graph.txt"), "rb") as fh:
+        env = fh.read()
+    with open(os.path.join(tmp, "out", "gene1", "graph.txt"), "rb") as fh:
+        check(env == fh.read(), "stage 1's graph.txt differs from the "
+                                "slice's gene1/graph.txt")
+    batches = -(-n_reads // BATCH)
+    check(stage1.launches == batches and later.launches == 0,
+          f"assembler launches: stage 1 {stage1.launches} (want {batches}), "
+          f"stages 2-3 {later.launches} (want 0)")
+    t_asm = later.line("Running stage assembly")[0]
+    t_re = later.line("Running stage re-environment")[0]
+    say("assembler", f"stage 1 (environment, filter) {stage1.seconds:.3f} s, "
+                     f"kernel launches {stage1.launches}; stage 2 (stub "
+                     f"megahit) {t_re - t_asm:.3f} s; stage 3 (k={REENV_K}, "
+                     f"coverage 0, {len(rows)} k-mers) "
+                     f"{later.seconds - t_re:.3f} s, kernel launches "
+                     f"{later.launches}; {kept} reads kept ({card})")
+    again = drive(args + ["--continue"])
+    again.line("Stage environment-assembler-finder already done")
+    check(again.launches == 0, "the --continue run launched the kernel")
+    say("assembler", f"stage 1's graph.txt byte-identical to the slice's "
+                     f"gene1; the --continue run skipped all three stages "
+                     f"in {again.seconds:.3f} s")
+    checker = SubgraphChecker(list(load_graph_txt(os.path.join(out,
+                                                               "graph.txt"))),
+                              MAIN_K, None)
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        n = filter_reads_file(fq, checker, os.path.join(tmp, "asm_filter"), 0,
+                              ASM_PF)
+        secs.append(time.perf_counter() - t0)
+    with open(os.path.join(tmp, "asm_filter", "cutReads0.fasta"), "rb") as fh:
+        check(n == kept and fh.read() == cut_bytes,
+              "filter_reads_file alone differs from the tool's cutReads0")
+    say("assembler", f"read filter alone over {n_reads} reads "
+                     f"({len(checker._keys)} environment k-mers): "
+                     f"{min(secs):.3f} s, {n_reads / min(secs):.0f} reads/s "
+                     f"(best of two: {secs[0]:.3f}, {secs[1]:.3f} s; the "
+                     f"host) ({card})")
+    small_genes = os.path.join(tmp, "small_genes.fasta")
+    outs = {}
+    for platform in ("cuda", "cpu"):
+        o = os.path.join(tmp, f"asm_small_{platform}")
+        drive(assembler_args(small_fq, small_genes, o,
+                             os.path.join(tmp, f"wdas_{platform}"), stubs,
+                             3, 200), MC_PLATFORM=platform)
+        outs[platform] = tree(o)
+    check(outs["cuda"] == outs["cpu"] and "result/graph.txt" in outs["cuda"],
+          "small environment-assembler-finder on CUDA differs from the CPU")
+    say("assembler", f"small environment-assembler-finder: "
+                     f"{len(outs['cuda'])} files byte-identical between cuda "
+                     f"and cpu")
+    return {"stage1": stage1.launches, "stage3": later.launches}
+
+
+def hic_args(reads: str, gene: str, mates: list[str], wd: str,
+             coverage: int, radius: int) -> list[str]:
+    return ["-t", "hic-pipeline", "-k", str(MAIN_K), "-i", reads,
+            "--seq", gene, "--hi-c-r1", mates[0], "--hi-c-r2", mates[1],
+            "--coverage", str(coverage), "--maxradius", str(radius),
+            "--work-dir", wd]
+
+
+def phase_hic(rng, genomes: np.ndarray, fq: str, genes: str, small_fq: str,
+              n_reads: int, tmp: str, card: str) -> dict[str, int]:
+    """Returns the kernel launches of each pass."""
+    bindir = os.path.join(tmp, "bin")
+    os.makedirs(bindir)
+    write_stub(os.path.join(bindir, "bwa"), BWA_STUB)
+    write_stub(os.path.join(bindir, "samtools"), "#!/bin/sh\nexit 0\n")
+    path = f"{bindir}:{os.environ.get('PATH', '')}"
+    mates = [os.path.join(tmp, f"hic_{m}.fastq") for m in (1, 2)]
+    for p, m in zip(mates, sample_pairs(rng, genomes[:1], HIC_PAIRS, 0.001)):
+        write_fastq(p, m)
+    gene = first_gene(genes, tmp)
+    wd = os.path.join(tmp, "hic")
+    run = drive(hic_args(fq, gene, mates, wd, 5, 1000), PATH=path)
+    for name in ("output/1/merged/seqs.fasta", "1/selected_reads.fasta",
+                 "output/2/merged/graph.txt", "2/hic_map.txt", "SUCCESS"):
+        check(os.path.exists(os.path.join(wd, name)),
+              f"hic-pipeline left no {name}")
+    with open(os.path.join(wd, "2", "hic_map.txt")) as fh:
+        rows = fh.read().splitlines()
+    check(rows[0] == "v1\tv2\thic_w" and len(rows) > 1,
+          f"hic_map.txt: header {rows[0]!r}, {len(rows) - 1} contact rows")
+    with open(os.path.join(wd, "1", "selected_reads.fasta")) as fh:
+        selected = fh.read().count(">")
+    counted = run.launches_at("Hashtable size")
+    done = [i for i, (_, m) in enumerate(run.log)
+            if m.startswith("Finished processing all sequences")]
+    check(len(counted) == 2 and len(done) == 2,
+          "hic-pipeline did not run two passes")
+    launches = {"pass1": counted[0], "pass2": counted[1] - counted[0]}
+    batches = -(-n_reads // BATCH)
+    check(launches["pass1"] == launches["pass2"] == batches
+          and run.launches == counted[1],
+          f"hic-pipeline launches {launches}, total {run.launches} (want "
+          f"{batches} a pass)")
+    t1, t2 = run.log[done[0]][0], run.log[done[1]][0]
+    t2_start = run.log[done[0] + 1][0]
+    with open(os.path.join(wd, "output", "2", "merged", "graph.txt")) as fh:
+        n_env2 = sum(1 for _ in fh)
+    say("hic", f"hic-pipeline -k {MAIN_K}: pass 1 {t1:.3f} s, kernel "
+               f"launches {launches['pass1']}; stub alignment and selection "
+               f"of {selected} reads {t2_start - t1:.3f} s; pass 2 "
+               f"{t2 - t2_start:.3f} s ({n_env2} k-mers), kernel launches "
+               f"{launches['pass2']}; contact map {run.seconds - t2:.3f} s "
+               f"({len(rows) - 1} rows); total {run.seconds:.3f} s ({card})")
+    direct = os.path.join(tmp, "hic_direct")
+    drive(["-t", "environment-finder", "-k", str(MAIN_K), "-i", fq,
+           "--seq", gene, "-o", direct, "--coverage", "5", "--maxradius",
+           "1000", "--bothdirs", "False", "--chunklength", "10", "--merge",
+           "true", "--work-dir", os.path.join(tmp, "wdhd")])
+    check(tree(direct) == tree(os.path.join(wd, "output", "1")),
+          "hic-pipeline pass 1 differs from a direct environment-finder run")
+    small_mates = [os.path.join(tmp, f"hic_small_{m}.fastq") for m in (1, 2)]
+    for p, m in zip(small_mates, sample_pairs(rng, genomes[:1], 300, 0.001)):
+        write_fastq(p, m)
+    small_genes = os.path.join(tmp, "small_genes.fasta")
+    outs = {}
+    for platform in ("cuda", "cpu"):
+        root = os.path.join(tmp, f"hic_small_{platform}")
+        drive(hic_args(small_fq, small_genes, small_mates, root, 3, 200),
+              MC_PLATFORM=platform, PATH=path)
+        outs[platform] = work_tree(root)
+    check(outs["cuda"] == outs["cpu"] and "2/hic_map.txt" in outs["cuda"],
+          "small hic-pipeline on CUDA differs from the CPU")
+    say("hic", f"pass 1 byte-identical to a direct environment-finder "
+               f"--merge run; small hic-pipeline: {len(outs['cuda'])} files "
+               f"byte-identical between cuda and cpu")
+    return launches
+
+
+def multi_palette(n: int) -> set[str]:
+    """GFAWriterMulti's colors for n graphs (n = 2 or n > 3), membership 1
+    to n, and the gene nodes' green."""
+    if n == 2:
+        return {"#ff0000", "#0000ff", "#00ff00"}
+    return {"#" + f"{256 * m // n:02X}" * 3 for m in range(1, n + 1)} | {
+        "#00ff00"}
+
+
+def phase_multi(tmp: str, card: str) -> int:
+    """Returns the kernel launches of its runs (none: multi runs on the
+    host)."""
+    from metacherchant_tpu_torch.dna import normalize
+    from metacherchant_tpu_torch.io.writers import load_graph_txt
+    files = [os.path.join(tmp, *p) for p in (
+        ("out", "gene1", "graph.txt"), ("asm", "graph.txt"),
+        ("hic", "output", "1", "merged", "graph.txt"),
+        ("hic", "output", "2", "merged", "graph.txt"))]
+    gene = os.path.join(tmp, "gene1.fasta")
+    launches = 0
+    for chosen in (files, [files[0], files[3]]):
+        n = len(chosen)
+        out = os.path.join(tmp, f"multi{n}")
+        run = drive(["-t", "environment-finder-multi", "-e", *chosen,
+                     "--seq", gene, "-o", out,
+                     "--work-dir", os.path.join(tmp, f"wdm{n}")])
+        check(run.launches == 0, "environment-finder-multi launched B1")
+        launches += run.launches
+        with open(os.path.join(out, "graph.gfa")) as fh:
+            colors = [ln.split("\t")[5][len("CL:Z:"):] for ln in fh
+                      if ln.startswith("S\t")]
+        check(bool(colors) and set(colors) <= multi_palette(n),
+              f"{n} graphs: colors {sorted(set(colors))} outside the palette")
+        for name in ("Jacard_sym.txt", "Jacard_alt.txt"):
+            with open(os.path.join(out, name)) as fh:
+                rows = fh.read().splitlines()[2:]
+            diag = [row[len(f):].split()[i]
+                    for i, (row, f) in enumerate(zip(rows, chosen))]
+            check(len(rows) == n and diag == ["0.00"] * n,
+                  f"{name}: diagonal {diag}")
+        wanted = set()
+        for f in chosen:
+            wanted.update(load_graph_txt(f))
+        have = set()
+        with open(os.path.join(out, "seqs.fasta")) as fh:
+            for ln in fh:
+                if not ln.startswith(">"):
+                    seq = ln.strip()
+                    have.update(normalize(seq[i:i + MAIN_K])
+                                for i in range(len(seq) - MAIN_K + 1))
+        check(wanted <= have, f"{n} graphs: seqs.fasta misses "
+                              f"{len(wanted - have)} input k-mers")
+        say("multi", f"environment-finder-multi on {n} graphs "
+                     f"({len(wanted)} k-mers in all): {run.seconds:.3f} s, "
+                     f"{len(colors)} segments in {len(set(colors))} colors, "
+                     f"Jaccard diagonals 0.00, every input k-mer in "
+                     f"seqs.fasta ({card})")
+    return launches
+
+
 def timed(name: str, card: str, fn, *args):
     t0 = time.perf_counter()
     result = fn(*args)
@@ -1495,6 +1842,12 @@ def main() -> int:
         cov = timed("seq-cov", smi, phase_seq_cov, rng, fq, genes, small_fq,
                     cls["genomes_b"], tmp, smi)
         fmt, recipient = timed("fmt", smi, phase_fmt, rng, tmp, smi)
+        n_reads = 20 * genomes.size // 150
+        asm = timed("assembler", smi, phase_assembler, fq, genes, small_fq,
+                    n_reads, tmp, smi)
+        hic = timed("hic", smi, phase_hic, rng, genomes, fq, genes, small_fq,
+                    n_reads, tmp, smi)
+        multi = timed("multi", smi, phase_multi, tmp, smi)
     print(json.dumps({"kernels": [{
         "name": "extract_append",
         "route": "cuda",
@@ -1525,6 +1878,13 @@ def main() -> int:
                 dbfs["multiword"],
             **{f"environment-finder -k {MAIN_K} wide frontier ({mode})":
                dbfs[f"wide-{mode}"] for mode in ("host", "dense", "probe")},
+            f"environment-assembler-finder -k {MAIN_K} (stage 1)":
+                asm["stage1"],
+            f"environment-assembler-finder stage 3 -k {REENV_K}":
+                asm["stage3"],
+            "hic-pipeline pass 1": hic["pass1"],
+            "hic-pipeline pass 2": hic["pass2"],
+            "environment-finder-multi": multi,
         },
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],

@@ -67,10 +67,11 @@ class _gc_suspended:
 
 
 class Node:
-    __slots__ = ("seq", "id", "rc", "neighbors", "deleted", "is_gene", "color")
+    __slots__ = ("seq", "id", "rc", "neighbors", "deleted", "is_gene", "color",
+                 "graphs")
 
     def __init__(self, seq: str, node_id: int, is_gene: bool = False,
-                 color: str | None = None):
+                 color: str | None = None, graphs: frozenset | None = None):
         self.seq = seq
         self.id = node_id
         self.rc: "Node" = None  # type: ignore
@@ -78,6 +79,7 @@ class Node:
         self.deleted = False
         self.is_gene = is_gene
         self.color = color  # GFA CL tag: GREEN for gene nodes, or FMT colors
+        self.graphs = graphs  # environment-finder-multi's membership set
 
     def min_id(self) -> int:
         return min(self.id, self.rc.id)
@@ -85,12 +87,13 @@ class Node:
 
 def build_node_graph(kmers: Iterable[str], k: int,
                      is_gene: Callable[[str, str], bool] | None = None,
-                     color_of: Callable[[str], str | None] | None = None
+                     color_of: Callable[[str], str | None] | None = None,
+                     graphs_of: Callable[[str], frozenset] | None = None
                      ) -> list[Node]:
     """initializeStructures (OneSequenceCalculator.java:387-419): two nodes per
     canonical k-mer + (k-1)-prefix index adjacency. `kmers` iteration order
     defines ids. Colors come from color_of when given, else GREEN for gene
-    nodes."""
+    nodes; membership sets from graphs_of when given, else None."""
     kmer_list = kmers if isinstance(kmers, list) else list(kmers)
     n = len(kmer_list)
     rcs = _bulk_reverse_complement(kmer_list, k)
@@ -103,12 +106,15 @@ def build_node_graph(kmers: Iterable[str], k: int,
                  if is_gene else [False] * n)
         colors = ([color_of(s) for s in kmer_list] if color_of
                   else ["GREEN" if g else None for g in genes])
+        graphss = ([graphs_of(s) for s in kmer_list] if graphs_of
+                   else [None] * n)
         nodes: list[Node] = []
         append = nodes.append
         nid = 0
-        for seq, rc, gene, color in zip(kmer_list, rcs, genes, colors):
-            a = Node(seq, nid, gene, color)
-            b = Node(rc, nid + 1, gene, color)
+        for seq, rc, gene, color, graphs in zip(kmer_list, rcs, genes,
+                                                colors, graphss):
+            a = Node(seq, nid, gene, color, graphs)
+            b = Node(rc, nid + 1, gene, color, graphs)
             a.rc = b
             b.rc = a
             append(a)

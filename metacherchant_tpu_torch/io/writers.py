@@ -91,6 +91,19 @@ def write_graph_txt_codes(path: str, codes: np.ndarray, counts: np.ndarray,
         fh.write(out.tobytes())
 
 
+def load_graph_txt(path: str) -> dict[str, int]:
+    """DeBruijnGraphUtils.loadGraph (src/io/graph/DeBruijnGraphUtils.java:13-27)."""
+    graph: dict[str, int] = {}
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            tokens = line.split(" ")
+            graph[tokens[0]] = int(tokens[1])
+    return graph
+
+
 # ---------------------------------------------------------------------------
 # seqs.fasta
 # ---------------------------------------------------------------------------

@@ -1,8 +1,7 @@
 """CLI runner: tool registry + dispatch (src/Runner.java, itmo:Runner.java).
 
 Default tool is environment-finder (src/Runner.java:14-18). The registry
-holds the tools ported so far; the others of metacherchant_tpu give the
-usual unknown-tool error.
+holds the same eleven tools as metacherchant_tpu/runner.py.
 """
 from __future__ import annotations
 
@@ -13,18 +12,22 @@ from .tool import Tool
 
 
 def _registry() -> dict[str, type[Tool]]:
+    from .tools.environment_assembler_finder import EnvironmentAssemblerFinder
     from .tools.environment_finder import EnvironmentFinderMain
+    from .tools.environment_finder_multi import EnvironmentFinderMultiMain
     from .tools.fmt_visualiser import FMTVisualiser
     from .tools.fmt_visualizer import FMTVisualizer
+    from .tools.hic_pipeline import HiCPipeline
     from .tools.kmer_counter import KmersCounter
     from .tools.reads_classifier import ReadsClassifier
     from .tools.recipient_visualiser import RecipientVisualiser
     from .tools.seq_cov import SequenceCoverage
     from .tools.triple_reads_classifier import TripleReadsClassifier
     return {cls.NAME: cls for cls in
-            (EnvironmentFinderMain, KmersCounter, ReadsClassifier,
-             TripleReadsClassifier, SequenceCoverage, FMTVisualiser,
-             FMTVisualizer, RecipientVisualiser)}
+            (EnvironmentFinderMain, KmersCounter, EnvironmentFinderMultiMain,
+             ReadsClassifier, TripleReadsClassifier, SequenceCoverage,
+             EnvironmentAssemblerFinder, FMTVisualiser, FMTVisualizer,
+             RecipientVisualiser, HiCPipeline)}
 
 
 DEFAULT_TOOL = "environment-finder"

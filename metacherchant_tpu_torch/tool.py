@@ -1,17 +1,24 @@
 """Tool framework: declarative typed parameters, workDir, logging, checkpoint.
 
-Carried over from metacherchant_tpu/tool.py for single-stage tools, after the
-reference CLI framework (itmo:utils/tool/Tool.java, Parameter.java):
+Carried over from metacherchant_tpu/tool.py, after the reference CLI
+framework (itmo:utils/tool/Tool.java, Parameter.java):
 - declarative Parameter fields with names/short opts/defaults, POSIX-style
   parsing: --name value / -s value, booleans with optional true/false argument
   (Tool.parseArgs:626-659)
 - global launch options: --work-dir (default 'workDir'), -p/--available-processors,
   --continue, --force, -v/--verbose (Tool.java:58-141)
-- checkpoint: workDir/SUCCESS + in.properties; with --continue a run whose
-  SUCCESS exists and whose input parameters match is skipped (runAsStep,
-  Tool.java:318-390). Without --force/--continue the reference prompts before
-  overwriting a finished workDir (:407-430); this implementation logs a
-  warning and proceeds (non-interactive divergence).
+- per-stage checkpoint: workDir/SUCCESS + in.properties; with --continue a
+  stage whose SUCCESS exists and whose input parameters match is skipped
+  (runAsStep, Tool.java:318-390). Without --force/--continue the reference
+  prompts before overwriting a finished workDir (:407-430); this
+  implementation logs a warning and proceeds (non-interactive divergence).
+- out.properties: outputs recorded via add_output() are dumped after a
+  successful run and reloaded when a run is skipped under --continue
+  (Tool.java:356-390)
+- multi-step tools via add_step(name, fn); --start/--finish bound which
+  steps execute (Tool.java:94-101,475-530). Single-step tools treat their
+  own NAME as the only valid stage. Each step checkpoints separately
+  (SUCCESS.<step>) so --continue resumes mid-pipeline.
 - logging to console + workDir/log + workDir/logs/log_<timestamp>
   (Tool.updateFileLoggers:666-687)
 - --profile DIR writes a torch.profiler chrome trace of the run to
@@ -100,7 +107,7 @@ class Tool:
             description="enable debug output"))
         # accepted-for-compatibility launch options (Tool.java:94-141): memory
         # sizing and assertions are JVM concepts with no effect here;
-        # start/finish name the one stage of a single-stage tool
+        # start/finish bound multi-stage runs
         self.memory = self.add_parameter(Parameter(
             "memory", str, short="m",
             description="memory to use (JVM-compat no-op)"))
@@ -115,11 +122,29 @@ class Tool:
             "profile", str,
             description="write a torch profiler trace of the run to this dir"))
         self.logger = logging.getLogger("metacherchant")
+        self._steps: list[tuple[str, Callable[[], None]]] = []
+        self._out_values: dict[str, str] = {}
 
     # -- parameter plumbing -------------------------------------------------
     def add_parameter(self, p: Parameter) -> Parameter:
         self._params.append(p)
         return p
+
+    # -- steps / outputs ------------------------------------------------------
+    def add_step(self, name: str, fn: Callable[[], None]) -> None:
+        """Register a named pipeline step (itmo:utils/tool/Tool.java addStep
+        :475-530). Steps run in registration order under per-step checkpoints
+        and are addressable by --start/--finish."""
+        self._steps.append((name, fn))
+
+    def add_output(self, key: str, value) -> None:
+        """Record an output value, dumped to out.properties after the run and
+        reloaded when the run is skipped under --continue
+        (Tool.java:356-390)."""
+        self._out_values[key] = str(value)
+
+    def get_output(self, key: str) -> str | None:
+        return self._out_values.get(key)
 
     def _find(self, opt: str) -> Parameter | None:
         for p in self._params:
@@ -159,11 +184,6 @@ class Tool:
         if missing:
             raise ExecutionFailedException(
                 f"Mandatory parameter(s) not set: {', '.join('--' + m for m in missing)}")
-        for bound, flag in ((self.start_stage.get(self), "--start"),
-                            (self.finish_stage.get(self), "--finish")):
-            if bound is not None and bound != self.NAME:
-                raise ExecutionFailedException(
-                    f"Unknown stage for {flag}: {bound!r} (stages: {self.NAME})")
 
     # -- logging / checkpoint ----------------------------------------------
     def _setup_logging(self) -> None:
@@ -199,45 +219,127 @@ class Tool:
             lines.append(f"{p.name}={p.get(self)}")
         return "\n".join(lines) + "\n"
 
+    def _success_path(self) -> str:
+        return os.path.join(self.work_dir.get(self), "SUCCESS")
+
+    def _in_props_path(self) -> str:
+        return os.path.join(self.work_dir.get(self), "in.properties")
+
+    def _out_props_path(self) -> str:
+        return os.path.join(self.work_dir.get(self), "out.properties")
+
+    def _write_out_properties(self) -> None:
+        with open(self._out_props_path(), "w") as f:
+            f.write(f"tool={self.NAME}\n")
+            for k in sorted(self._out_values):
+                f.write(f"{k}={self._out_values[k]}\n")
+
+    def _load_out_properties(self) -> None:
+        try:
+            with open(self._out_props_path()) as f:
+                for line in f:
+                    if "=" in line:
+                        k, v = line.rstrip("\n").split("=", 1)
+                        if k != "tool":
+                            self._out_values.setdefault(k, v)
+        except OSError:
+            pass
+
+    def _step_marker(self, name: str, multi: bool) -> str:
+        if not multi:
+            return self._success_path()
+        return os.path.join(self.work_dir.get(self), f"SUCCESS.{name}")
+
     # -- lifecycle ----------------------------------------------------------
     def main(self, argv: list[str]) -> int:
         try:
             self.parse_args(argv)
             self._setup_logging()
             wd = self.work_dir.get(self)
-            success = os.path.join(wd, "SUCCESS")
-            in_props = os.path.join(wd, "in.properties")
+            success = self._success_path()
             props = self._in_properties()
+            steps = self._steps or [(self.NAME, self.run_impl)]
+            multi = len(steps) > 1
+            names = [n for n, _ in steps]
+            i0, i1 = self._stage_bounds(names)
             try:
-                with open(in_props) as f:
+                with open(self._in_props_path()) as f:
                     old_props = f.read()
             except OSError:
                 old_props = None
+            resumable = self.continue_run.get(self) and old_props == props
             if os.path.exists(success):
-                if self.continue_run.get(self) and old_props == props:
+                if resumable:
                     self.logger.info(
                         "Stage %s already done, skipping (--continue)", self.NAME)
+                    self._load_out_properties()
                     return 0
                 if not self.continue_run.get(self) and not self.force_run.get(self):
                     self.logger.warning(
                         "workDir %s contains results of a finished run; "
                         "overwriting (pass --continue to resume)", wd)
                 os.remove(success)
-            with open(in_props, "w") as f:
+            os.makedirs(wd, exist_ok=True)
+            with open(self._in_props_path(), "w") as f:
                 f.write(props)
+
+            def run_steps() -> None:
+                for idx, (name, fn) in enumerate(steps):
+                    marker = self._step_marker(name, multi)
+                    if idx < i0 or idx > i1:
+                        self.logger.info(
+                            "Stage %s outside --start/--finish bounds, not running",
+                            name)
+                        continue
+                    if resumable and os.path.exists(marker):
+                        self.logger.info(
+                            "Stage %s already done, skipping (--continue)", name)
+                        continue
+                    if os.path.exists(marker):
+                        os.remove(marker)
+                    if multi:
+                        self.logger.info("Running stage %s", name)
+                    fn()
+                    if multi:
+                        with open(marker, "w"):
+                            pass
+
             prof = self.profile_dir.get(self)
             if prof:
-                self._run_profiled(prof)
+                self._run_profiled(prof, run_steps)
             else:
-                self.run_impl()
-            with open(success, "w"):
-                pass
+                run_steps()
+            self.clean_impl()
+            self._write_out_properties()
+            all_done = all(
+                os.path.exists(self._step_marker(n, multi)) for n in names
+            ) if multi else i1 == len(steps) - 1
+            if all_done:
+                with open(success, "w"):
+                    pass
             return 0
         except (ExecutionFailedException, NotImplementedError) as e:
             self.logger.error("%s", e)
             return 1
 
-    def _run_profiled(self, prof: str) -> None:
+    def _stage_bounds(self, names: list[str]) -> tuple[int, int]:
+        """Resolve --start/--finish into step-index bounds, validating names
+        (itmo:utils/tool/Tool.java:94-101: firstStep/lastStep options)."""
+        start = self.start_stage.get(self)
+        finish = self.finish_stage.get(self)
+        for bound, flag in ((start, "--start"), (finish, "--finish")):
+            if bound is not None and bound not in names:
+                raise ExecutionFailedException(
+                    f"Unknown stage for {flag}: {bound!r} "
+                    f"(stages: {', '.join(names)})")
+        i0 = names.index(start) if start is not None else 0
+        i1 = names.index(finish) if finish is not None else len(names) - 1
+        if i1 < i0:
+            raise ExecutionFailedException(
+                f"--finish stage {finish!r} precedes --start stage {start!r}")
+        return i0, i1
+
+    def _run_profiled(self, prof: str, run_steps: Callable[[], None]) -> None:
         import torch
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
@@ -245,16 +347,25 @@ class Tool:
             activities.append(ProfilerActivity.CUDA)
         self.logger.info("Profiling run to %s", prof)
         with profile(activities=activities) as p:
-            self.run_impl()
+            run_steps()
         os.makedirs(prof, exist_ok=True)
         p.export_chrome_trace(os.path.join(prof, "trace.json"))
 
     def run_impl(self) -> None:
         raise NotImplementedError
 
-    # logging helpers mirroring Tool.info/warn (Tool.java:1075-1126)
+    def clean_impl(self) -> None:
+        pass
+
+    # logging helpers mirroring Tool.info/warn/debug/error (Tool.java:1075-1126)
     def info(self, msg, *args):
         self.logger.info(msg, *args)
 
     def warn(self, msg, *args):
         self.logger.warning(msg, *args)
+
+    def debug(self, msg, *args):
+        self.logger.debug(msg, *args)
+
+    def error(self, msg, *args):
+        self.logger.error(msg, *args)

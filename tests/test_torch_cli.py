@@ -208,6 +208,16 @@ def test_unknown_tool(capsys):
     assert "Unknown tool" in capsys.readouterr().err
 
 
+def test_tools_listing_matches_jax(capsys):
+    """--tools lists the JAX package's eleven tools, with their
+    descriptions."""
+    assert jax_main(["--tools"]) == 0
+    want = capsys.readouterr().out
+    assert port_main(["--tools"]) == 0
+    got = capsys.readouterr().out
+    assert got == want and len(got.splitlines()) == 12
+
+
 _FMT_STEMS = ("settle", "not_settle", "stay", "gone", "came_from_donor",
               "came_from_baseline", "came_from_both", "came_itself")
 
@@ -216,7 +226,10 @@ _FMT_STEMS = ("settle", "not_settle", "stay", "gone", "came_from_donor",
                                   "reads-classifier",
                                   "triple-reads-classifier", "seq-cov",
                                   "fmt-visualiser", "fmt-visualizer",
-                                  "recipient-visualiser"])
+                                  "recipient-visualiser",
+                                  "environment-finder-multi",
+                                  "environment-assembler-finder",
+                                  "hic-pipeline"])
 def test_cuda_without_gpu_fails_clearly(recipe, tool, tmp_path, monkeypatch):
     """MC_PLATFORM=cuda where torch sees no GPU: rc 1 and the reason in the
     log, never a silent run on the CPU."""
@@ -232,6 +245,8 @@ def test_cuda_without_gpu_fails_clearly(recipe, tool, tmp_path, monkeypatch):
     out = ["-o", str(tmp_path / "out"), "--work-dir", str(tmp_path / "wd")]
     fmt = ["-k", "21", "-i", str(bins), "--ext", "fastq", "-after", reads,
            *out]
+    env = tmp_path / "graph.txt"
+    env.write_text("ACGTACGTACGTACGTACGTA 3\n")
     args = {"environment-finder": _args(recipe, 21, tmp_path / "out",
                                         tmp_path / "wd")[2:],
             "kmer-counter": ["-k", "21", "-i", reads, *out],
@@ -243,7 +258,16 @@ def test_cuda_without_gpu_fails_clearly(recipe, tool, tmp_path, monkeypatch):
                         "-r", genes, *out],
             "fmt-visualiser": ["-donor", reads, "-before", reads, *fmt],
             "fmt-visualizer": ["-donor", reads, "-before", reads, *fmt],
-            "recipient-visualiser": ["--seq", genes, *fmt]}[tool]
+            "recipient-visualiser": ["--seq", genes, *fmt],
+            "environment-finder-multi": ["-e", str(env), str(env),
+                                         "--seq", genes, *out],
+            "environment-assembler-finder": [
+                "-k", "21", "-i", reads, "--seq", genes, "--maxradius", "100",
+                "--assembler", "spades", "--assemblerpath", str(tmp_path),
+                "-pf", "10", *out],
+            "hic-pipeline": ["-k", "21", "-i", reads, "--seq", genes,
+                             "--hi-c-r1", reads, "--hi-c-r2", reads,
+                             "--work-dir", str(tmp_path / "wd")]}[tool]
     assert port_main(["-t", tool, *args]) == 1
     assert "no CUDA device" in _log(tmp_path / "wd")
     assert not os.path.exists(tmp_path / "wd" / "SUCCESS")

@@ -136,3 +136,62 @@ def test_device_engines_run_without_jax(tmp_path):
         assert (out / name / "geneA" / "graph.txt").stat().st_size > 0
     assert (out / "dense" / "geneA" / "graph.txt").read_bytes() == \
         (out / "probe" / "geneA" / "graph.txt").read_bytes()
+
+
+def test_last_three_tools_run_without_jax(tmp_path):
+    """environment-finder-multi on graph.txt files the port's
+    environment-finder writes, environment-assembler-finder with a stub
+    spades, and hic-pipeline with a stub bwa, then --first-pass-only: both
+    passes run the port's own runner, so metacherchant_tpu stays out of
+    sys.modules."""
+    from test_hic_pipeline import BWA_STUB
+    from test_torch_assembler import SPADES_STUB
+    g, reads = _reads(tmp_path)
+    genes = tmp_path / "genes.fasta"
+    genes.write_text(f">geneA\n{g[1000:1120]}\n")
+    (tmp_path / "spades").mkdir()
+    (tmp_path / "spades" / "spades.py").write_text(SPADES_STUB)
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    (bindir / "bwa").write_text(BWA_STUB)
+    (bindir / "samtools").write_text("#!/bin/sh\nexit 0\n")
+    for name in ("bwa", "samtools"):
+        (bindir / name).chmod(0o755)
+    hic = [str(tmp_path / f"hic_{m}.fastq") for m in (1, 2)]
+    for path in hic:
+        with open(path, "w") as fh:
+            fh.write("".join(f"@h{i}\n{g[i * 97:i * 97 + 50]}\n+\n{'I' * 50}\n"
+                             for i in range(20)))
+    out, r = tmp_path / "out", str(reads)
+
+    def env_finder(cov: int) -> list[str]:
+        return ["-t", "environment-finder", "-k", "21", "-i", r,
+                "--seq", str(genes), "-o", str(out / f"c{cov}"),
+                "--coverage", str(cov), "--maxradius", "100",
+                "--work-dir", str(tmp_path / f"we{cov}"), "::"]
+
+    hic_args = ["-t", "hic-pipeline", "-k", "21", "-i", r, "--seq",
+                str(genes), "--hi-c-r1", hic[0], "--hi-c-r2", hic[1],
+                "--coverage", "3", "--maxradius", "100"]
+    _run([*env_finder(1), *env_finder(3),
+          "-t", "environment-finder-multi",
+          "-e", *(str(out / f"c{c}" / "geneA" / "graph.txt") for c in (1, 3)),
+          "--seq", str(genes), "-o", str(out / "multi"),
+          "--work-dir", str(tmp_path / "wm"), "::",
+          "-t", "environment-assembler-finder", "-k", "21", "-i", r,
+          "--seq", str(genes), "-o", str(out / "asm"), "--maxradius", "100",
+          "--coverage", "3", "--assembler", "spades",
+          "--assemblerpath", str(tmp_path / "spades"), "-pf", "50",
+          "--work-dir", str(tmp_path / "wa"), "::",
+          *hic_args, "--work-dir", str(tmp_path / "wh"), "::",
+          *hic_args, "--work-dir", str(tmp_path / "wf"),
+          "--first-pass-only", "true"],
+         env={"PATH": f"{bindir}:{os.environ['PATH']}"})
+    assert "0.00" in (out / "multi" / "Jacard_sym.txt").read_text()
+    assert len((out / "asm" / "result" / "graph.txt").read_text()
+               .split(" ", 1)[0]) == 55
+    assert (tmp_path / "wh" / "2" / "hic_map.txt").read_text() \
+        .startswith("v1\tv2\thic_w\n")
+    assert (tmp_path / "wf" / "output" / "1" / "merged" / "seqs.fasta") \
+        .stat().st_size > 0
+    assert not (tmp_path / "wf" / "2").joinpath("hic_map.txt").exists()
