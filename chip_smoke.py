@@ -6,8 +6,8 @@ Drives metacherchant_tpu_torch's paths (environment-finder in the exact and
 hashed regimes, kmer-counter -> reads-classifier, triple-reads-classifier,
 seq-cov, the three FMT tools, environment-assembler-finder, hic-pipeline,
 environment-finder-multi, the device contraction, the device BFS engines,
-the `sort` and `hash` counting engines) at a real data size and checks
-them:
+the `sort`, `hash` and `sharded` counting engines, the sharded BFS) at a
+real data size and checks them:
 
   1. device         the card's name and power limit;
   2. build          the CUDA extraction kernel (nvcc, sm_90a) and the native
@@ -87,7 +87,17 @@ them:
                     CPU;
  17. multi          environment-finder-multi on four and on two k=31
                     graph.txt files of the first gene that phases 5, 15 and
-                    16 wrote: colors, Jaccard diagonals, k-mer coverage.
+                    16 wrote: colors, Jaccard diagonals, k-mer coverage;
+ 18. sharded        in a torch.distributed group of world size 1 (NCCL):
+                    count_kmers_device with MC_COUNT_ENGINE=sharded on the
+                    reads of phase 5 at k=31 and k=55 against the sort
+                    engine, key for key, with the kernel's launches, seconds,
+                    peak memory and the collectives' device ms; merge and
+                    chunk (the sort engine) likewise; a small sharded count
+                    against count_kmers_host; environment-finder -k 31 under
+                    MC_COUNT_ENGINE=sharded against phase 5's files;
+                    run_sharded_bfs on phase 9's wide frontier against
+                    bfs_layered in every direction.
 
 Every phase prints its own lines and its seconds; any failure exits
 non-zero. The last two lines are the kernels' JSON record and the device
@@ -1789,6 +1799,179 @@ def phase_multi(tmp: str, card: str) -> int:
     return launches
 
 
+class CollectiveCalls:
+    """Counts the torch.distributed collectives called inside the block and
+    times each on the card: CUDA events on the current stream just before
+    and just after the call (a blocking NCCL call makes the current stream
+    wait for its work), summed per collective once the block ends."""
+
+    NAMES = ("all_to_all_single", "all_reduce", "all_gather")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.events = {n: [] for n in self.NAMES}
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+
+        def counted(name):
+            def call(*args, **kw):
+                self.calls[name] += 1
+                pair = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                pair[0].record()
+                out = self.saved[name](*args, **kw)
+                pair[1].record()
+                self.events[name].append(pair)
+                return out
+            return call
+        for name in self.NAMES:
+            setattr(dist, name, counted(name))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self.saved.items():
+            setattr(dist, name, fn)
+        torch.cuda.synchronize()
+        self.ms = {n: sum(a.elapsed_time(b) for a, b in pairs)
+                   for n, pairs in self.events.items()}
+        return False
+
+    def summary(self) -> str:
+        return ", ".join(f"{n} {self.calls[n]} calls {self.ms[n]:.3f} ms"
+                         for n in self.NAMES)
+
+
+def sharded_bfs_checks(tmp: str, card: str) -> None:
+    """run_sharded_bfs on the wide frontier's data (phase 9: 400 kbp,
+    65,536 seeds, radius 50) against bfs_layered, every direction."""
+    from metacherchant_tpu_torch.algo.environment import (
+        bfs_layered, seed_codes_of_sequences)
+    from metacherchant_tpu_torch.counting import count_kmers_device
+    from metacherchant_tpu_torch.parallel.sharded_bfs import run_sharded_bfs
+    dev = torch.device("cuda")
+    kmap = count_kmers_device([os.path.join(tmp, "wide.fasta")], MAIN_K,
+                              device=dev)
+    with open(os.path.join(tmp, "wide_seeds.fasta")) as fh:
+        seqs = fh.read().splitlines()[1::2]
+    seeds = np.asarray(seed_codes_of_sequences(seqs, MAIN_K, kmap, 1),
+                       np.int64)
+    check(seeds.size == WIDE_SEEDS, f"{seeds.size} wide-frontier seeds")
+    for direction in (-1, 1, 0):
+        t0 = time.perf_counter()
+        want = bfs_layered(seeds, kmap, MAIN_K, 1, direction, WIDE_RADIUS)
+        t_host = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        stamps = _Stamps()
+        log = logging.getLogger("metacherchant")
+        level = log.level
+        log.addHandler(stamps)
+        log.setLevel(logging.DEBUG)
+        t0 = time.perf_counter()
+        try:
+            with CollectiveCalls() as coll:
+                got = run_sharded_bfs(seeds, kmap, MAIN_K, 1, direction,
+                                      WIDE_RADIUS, device=dev)
+        finally:
+            t_dev = time.perf_counter() - t0
+            log.removeHandler(stamps)
+            log.setLevel(level)
+        layers = [m for _, m, _ in stamps.records if "sharded BFS" in m]
+        check(len(layers) == 1, f"{len(layers)} sharded BFS log lines")
+        check(np.array_equal(got, want.visited),
+              f"run_sharded_bfs direction {direction} differs from "
+              f"bfs_layered")
+        say("sharded", f"run_sharded_bfs on the wide frontier ({len(kmap)} "
+                       f"k-mers, {WIDE_SEEDS} seeds, radius {WIDE_RADIUS}), "
+                       f"direction {direction:2d}: {got.size} visited, equal "
+                       f"to bfs_layered (host {t_host:.3f} s); "
+                       f"{t_dev:.3f} s on the card ({layers[0]}), peak "
+                       f"device memory {_peak_gib():.3f} GiB; collectives: "
+                       f"{coll.summary()} ({card})")
+
+
+def phase_sharded(rng, fq: str, small_fq: str, tmp: str, card: str) -> dict:
+    """MC_COUNT_ENGINE=sharded at world size 1 on the card (an NCCL group of
+    one, destroyed at the end), the merge and chunk aliases, and the
+    sharded BFS. Returns the kernel launches by path."""
+    import torch.distributed as dist
+    from metacherchant_tpu_torch.counting import (count_kmers_device,
+                                                  count_kmers_host)
+    from metacherchant_tpu_torch.ops import extract_cuda
+    from metacherchant_tpu_torch.parallel.distributed import (
+        initialize_distributed)
+    dev = torch.device("cuda")
+    initialize_distributed(device=dev)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"group {dist.get_backend()} of {dist.get_world_size()}")
+    launches = {}
+    try:
+        for k in (MAIN_K, HASH_K):
+            hasher = None if k <= 31 else "poly"
+            maps = {}
+            for engine in ("sort", "sharded", "merge", "chunk"):
+                if k > 31 and engine in ("merge", "chunk"):
+                    continue
+                gc.collect()
+                torch.cuda.reset_peak_memory_stats()
+                extract_cuda.LAUNCHES = 0
+                t0 = time.perf_counter()
+                with CollectiveCalls() as coll:
+                    maps[engine] = count_kmers_device(
+                        [fq], k, hasher, device=dev, engine=engine)
+                secs = time.perf_counter() - t0
+                launches[(engine, k)] = extract_cuda.LAUNCHES
+                say("sharded", f"count_kmers_device(engine={engine!r}) k={k} "
+                               f"on the slice's reads: {len(maps[engine])} "
+                               f"distinct keys in {secs:.3f} s, kernel "
+                               f"launches {launches[(engine, k)]}, peak "
+                               f"device memory {_peak_gib():.3f} GiB; "
+                               f"collectives: {coll.summary()} ({card})")
+                check((coll.calls["all_to_all_single"] > 0)
+                      == (engine == "sharded"),
+                      f"engine {engine} k={k}: {coll.calls}")
+                check(np.array_equal(maps[engine].keys, maps["sort"].keys)
+                      and np.array_equal(maps[engine].counts,
+                                         maps["sort"].counts),
+                      f"engine {engine} k={k}: map differs from sort's")
+                check(launches[(engine, k)] == launches[("sort", k)]
+                      and (launches[(engine, k)] > 0) == (k <= 31),
+                      f"engine {engine} k={k}: {launches[(engine, k)]} "
+                      f"launches, sort {launches[('sort', k)]}")
+            say("sharded", f"k={k}: " + ", ".join(
+                e for e in maps if e != "sort") + " == sort key for key")
+            del maps
+        small = count_kmers_device([small_fq], MAIN_K, device=dev,
+                                   engine="sharded")
+        host = count_kmers_host([small_fq], MAIN_K)
+        check(np.array_equal(small.keys, host.keys)
+              and np.array_equal(small.counts, host.counts),
+              "sharded count on the card differs from count_kmers_host")
+        say("sharded", f"small set: sharded engine == count_kmers_host "
+                       f"({len(host)} keys)")
+        out = os.path.join(tmp, "out_sharded")
+        torch.cuda.reset_peak_memory_stats()
+        run = drive(["-t", "environment-finder", "-k", str(MAIN_K),
+                     "-i", fq, "--seq", os.path.join(tmp, "genes.fasta"),
+                     "-o", out, "--coverage", "5", "--maxradius", "1000",
+                     "--work-dir", os.path.join(tmp, "wd_sharded")],
+                    MC_COUNT_ENGINE="sharded")
+        check(tree(out) == tree(os.path.join(tmp, "out")),
+              "environment-finder under MC_COUNT_ENGINE=sharded differs from "
+              "the slice's files")
+        launches["cli"] = run.launches
+        say("sharded", f"environment-finder -k {MAIN_K} "
+                       f"MC_COUNT_ENGINE=sharded: files byte-identical to the "
+                       f"slice's; {run.seconds:.3f} s, counting "
+                       f"{run.line('Hashtable size')[0]:.3f} s, kernel "
+                       f"launches {run.launches}, peak device memory "
+                       f"{_peak_gib():.3f} GiB ({card})")
+        sharded_bfs_checks(tmp, card)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def timed(name: str, card: str, fn, *args):
     t0 = time.perf_counter()
     result = fn(*args)
@@ -1848,6 +2031,8 @@ def main() -> int:
         hic = timed("hic", smi, phase_hic, rng, genomes, fq, genes, small_fq,
                     n_reads, tmp, smi)
         multi = timed("multi", smi, phase_multi, tmp, smi)
+        sharded = timed("sharded", smi, phase_sharded, rng, fq, small_fq,
+                        tmp, smi)
     print(json.dumps({"kernels": [{
         "name": "extract_append",
         "route": "cuda",
@@ -1885,6 +2070,12 @@ def main() -> int:
             "hic-pipeline pass 1": hic["pass1"],
             "hic-pipeline pass 2": hic["pass2"],
             "environment-finder-multi": multi,
+            **{f"count_kmers_device -k {MAIN_K} MC_COUNT_ENGINE={e}":
+               sharded[(e, MAIN_K)] for e in ("sharded", "merge", "chunk")},
+            f"count_kmers_device -k {HASH_K} MC_COUNT_ENGINE=sharded "
+            "(hashed)": sharded[("sharded", HASH_K)],
+            f"environment-finder -k {MAIN_K} MC_COUNT_ENGINE=sharded":
+                sharded["cli"],
         },
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],

@@ -68,7 +68,7 @@ class _gc_suspended:
 
 class Node:
     __slots__ = ("seq", "id", "rc", "neighbors", "deleted", "is_gene", "color",
-                 "graphs")
+                 "graphs", "changed", "visited")
 
     def __init__(self, seq: str, node_id: int, is_gene: bool = False,
                  color: str | None = None, graphs: frozenset | None = None):
@@ -80,6 +80,9 @@ class Node:
         self.is_gene = is_gene
         self.color = color  # GFA CL tag: GREEN for gene nodes, or FMT colors
         self.graphs = graphs  # environment-finder-multi's membership set
+        # used only by the legacy branch filter (src/algo/SingleNode.java:13-14)
+        self.changed = False
+        self.visited = False
 
     def min_id(self) -> int:
         return min(self.id, self.rc.id)

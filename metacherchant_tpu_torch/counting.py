@@ -1,10 +1,11 @@
 """K-mer counting: stream reads -> device extraction -> device counter.
 
 Counterpart of metacherchant_tpu/counting.py for the `sort` engine
-(ops/sortcount.StreamCounter) and the `hash` engine (ops/hashtable
-.DeviceHashTable), in the exact (k <= 31) and hashed (k > 31 or --forcehash,
-src/io/LargeKIOUtils.java:40-88) regimes. Long fragments are
-chunked with k-1 overlap so every window is counted once. With the native
+(ops/sortcount.StreamCounter; `merge` and `chunk` name it too), the `hash`
+engine (ops/hashtable.DeviceHashTable) and the `sharded` engine
+(parallel/sharded_count.ShardedCounter), in the exact (k <= 31) and hashed
+(k > 31 or --forcehash, src/io/LargeKIOUtils.java:40-88) regimes. Long
+fragments are chunked with k-1 overlap so every window is counted once. With the native
 parser, exact keys come from ragged rows: per launch one contiguous slice of
 the parsed codes and its chunk table go to the device, and only real
 windows reach the append buffer. The hashed regime and the Python readers
@@ -33,9 +34,6 @@ logger = logging.getLogger("metacherchant")
 
 DEFAULT_BATCH = 4096
 DEFAULT_LEN = 256
-
-#: MC_COUNT_ENGINE values of the JAX package that the port does not have yet
-_UNPORTED_ENGINES = ("merge", "chunk", "sharded")
 
 
 def _chunk_fragment(frag: np.ndarray, k: int, max_len: int) -> Iterator[np.ndarray]:
@@ -161,6 +159,81 @@ def _sort_geometry(table_log2: int, batch: int, max_len: int
     return buffer_cap, store_cap
 
 
+def _launches(files: list[str], k: int, hasher: str | None, min_len: int,
+              batch: int, max_len: int, device: torch.device
+              ) -> Iterator[np.ndarray | tuple]:
+    """The launches of counting, file by file: exact keys with the native
+    parser as ragged launches of `batch` chunks, (codes, starts, lens, offs,
+    windows) on `device`; else (batch, max_len) int8 numpy batches."""
+    from .progress import Progress
+    total_bytes = sum(os.path.getsize(f) for f in files
+                      if os.path.exists(f)) or None
+    progress = Progress(label="reads", log_every=2_500_000,
+                        total_bytes=total_bytes)
+    buf: list[np.ndarray] = []
+
+    def flush():
+        if buf:
+            yield pack_reads(buf, batch, max_len)
+            progress.update(len(buf))
+            buf.clear()
+
+    for f in files:
+        chunks = _native_chunks(f, k, min_len, max_len)
+        if chunks is not None:
+            yield from flush()  # keep batches file-aligned on the native path
+            if hasher is None:
+                for launch in _ragged_launches(chunks, batch, k, device):
+                    yield launch
+                    progress.update(batch)
+            else:
+                for packed in _packed_batches(chunks, batch, max_len):
+                    yield packed
+                    progress.update(batch)
+        else:
+            for frag in iter_fragments([f], k, min_len, max_len):
+                buf.append(frag)
+                if len(buf) == batch:
+                    yield from flush()
+        if os.path.exists(f):
+            progress.advance_bytes(os.path.getsize(f))
+    yield from flush()
+
+
+def _count_sharded(files: list[str], k: int, hasher: str | None,
+                   min_len: int, batch: int, max_len: int, table_log2: int,
+                   device: torch.device) -> tuple[np.ndarray, np.ndarray]:
+    """The `sharded` engine (parallel/sharded_count.py) with the JAX
+    package's geometry: this rank counts its own files, in launches of
+    batch // n chunks, and steps in lockstep with the other ranks; a rank
+    whose input has ended steps empty until none has input left. Every rank
+    returns the whole map."""
+    from .parallel.distributed import (global_mesh, initialize_distributed,
+                                       local_device, shard_files_for_host)
+    from .parallel.sharded_count import ShardedCounter, _all_reduce
+    initialize_distributed(device=device)
+    files = shard_files_for_host(files)
+    _, n = global_mesh()
+    device = local_device(device)
+    batch = max(n, (batch // n) * n)
+    per_shard = max(table_log2 - int(np.log2(n)) + 1, 12)
+    counter = ShardedCounter(k, hasher, capacity_log2_per_shard=per_shard,
+                             batch=batch, max_len=max_len, device=device)
+    launches = _launches(files, k, hasher, min_len, batch // n, max_len,
+                         device)
+    while True:
+        launch = next(launches, None)
+        if not _all_reduce([launch is not None], device=device)[0]:
+            break
+        if launch is None:
+            counter.add_empty(batch // n)
+        elif isinstance(launch, np.ndarray):
+            counter.add_codes(torch.from_numpy(launch).to(device))
+        else:
+            counter.add_ragged(*launch)
+    return counter.items_host()
+
+
 def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
                        min_len: int = 0, batch: int = DEFAULT_BATCH,
                        max_len: int = DEFAULT_LEN, table_log2: int = 20,
@@ -170,15 +243,15 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
     hasher None keys exactly, 'poly' or 'fnv1a' by hash.
 
     engine: 'sort' (the default; append buffer + sorted store,
-    ops/sortcount.py) or 'hash' (open-addressing table, ops/hashtable.py);
-    both give the same map. Ingestion uses the native (C++) parser per file
+    ops/sortcount.py), 'hash' (open-addressing table, ops/hashtable.py) or
+    'sharded' (one table shard per rank of a torch.distributed group,
+    parallel/sharded_count.py); 'merge' and 'chunk', the JAX package's
+    variants of 'sort' for its TPU compiler, are the 'sort' engine here.
+    All give the same map. Ingestion uses the native (C++) parser per file
     when available (ragged rows for exact keys, packed batches for hashed
     ones), else the Python per-fragment readers."""
     engine = engine or os.environ.get("MC_COUNT_ENGINE", "sort")
-    if engine in _UNPORTED_ENGINES:
-        raise NotImplementedError(
-            f"MC_COUNT_ENGINE={engine!r} not yet ported; use 'sort' or 'hash'")
-    if engine not in ("sort", "hash"):
+    if engine not in ("sort", "merge", "chunk", "hash", "sharded"):
         raise ValueError(f"unknown counting engine {engine!r}")
     if batch == DEFAULT_BATCH and os.environ.get("MC_COUNT_BATCH"):
         batch = max(int(os.environ["MC_COUNT_BATCH"]), 64)
@@ -187,6 +260,21 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
         # clamp to k so a value left over from a smaller-k run can never
         # produce windowless batches
         max_len = max(int(os.environ["MC_COUNT_MAX_LEN"]), k, 64)
+    files = [str(f) for f in files]
+    if engine == "sharded":
+        keys, counts = _count_sharded(files, k, hasher, min_len, batch,
+                                      max_len, table_log2, device)
+    else:
+        keys, counts = _count_local(files, k, hasher, min_len, batch,
+                                    max_len, table_log2, engine, device)
+    logger.debug("k-mers HM size = %d", len(keys))
+    return KmerMap(keys, counts)
+
+
+def _count_local(files: list[str], k: int, hasher: str | None, min_len: int,
+                 batch: int, max_len: int, table_log2: int, engine: str,
+                 device: torch.device) -> tuple[np.ndarray, np.ndarray]:
+    """The one-device engines: 'hash', else 'sort'."""
     if engine == "hash":
         table = DeviceHashTable(device, capacity_log2=table_log2)
         add_codes, add_ragged = table.count_insert_codes, table.count_insert
@@ -197,48 +285,13 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
                                 store_cap=store_cap)
         add_codes, add_ragged = counter.add_codes, counter.add_ragged
         finish = counter.finalize
-
-    def sink(packed: np.ndarray) -> None:
-        add_codes(torch.from_numpy(packed).to(device), k, hasher)
-
-    from .progress import Progress
-    files = [str(f) for f in files]
-    total_bytes = sum(os.path.getsize(f) for f in files
-                      if os.path.exists(f)) or None
-    progress = Progress(label="reads", log_every=2_500_000,
-                        total_bytes=total_bytes)
-    buf: list[np.ndarray] = []
-
-    def flush():
-        if not buf:
-            return
-        sink(pack_reads(buf, batch, max_len))
-        progress.update(len(buf))
-        buf.clear()
-
-    for f in files:
-        chunks = _native_chunks(f, k, min_len, max_len)
-        if chunks is not None:
-            flush()  # keep batches file-aligned on the native path
-            if hasher is None:
-                for *launch, n in _ragged_launches(chunks, batch, k, device):
-                    add_ragged(*launch, n, k)
-                    progress.update(batch)
-            else:
-                for packed in _packed_batches(chunks, batch, max_len):
-                    sink(packed)
-                    progress.update(batch)
+    for launch in _launches(files, k, hasher, min_len, batch, max_len,
+                            device):
+        if isinstance(launch, np.ndarray):
+            add_codes(torch.from_numpy(launch).to(device), k, hasher)
         else:
-            for frag in iter_fragments([f], k, min_len, max_len):
-                buf.append(frag)
-                if len(buf) == batch:
-                    flush()
-        if os.path.exists(f):
-            progress.advance_bytes(os.path.getsize(f))
-    flush()
-    keys, counts = finish()
-    logger.debug("k-mers HM size = %d", len(keys))
-    return KmerMap(keys, counts)
+            add_ragged(*launch, k)
+    return finish()
 
 
 def count_kmers_host(files: Iterable[str], k: int, hasher: str | None = None,

@@ -32,6 +32,7 @@ import torch
 
 from .contraction_device import _revcomp
 from .hashtable import DeviceHashTable, EMPTY, _lookup, _probe_claim
+from .kmers import SENTINEL
 
 logger = logging.getLogger("metacherchant")
 
@@ -53,6 +54,16 @@ def _neighbors_dev(codes: torch.Tensor, k: int, direction: int
 def _canonical_dev(codes: torch.Tensor, k: int) -> torch.Tensor:
     """Numeric-min canonical key (itmo:utils/KmerUtils.java:59-61)."""
     return torch.minimum(codes, _revcomp(codes, k))
+
+
+def _unique_pad(keys: torch.Tensor) -> torch.Tensor:
+    """Sort and dedup, keeping the shape: each run's first lane holds its
+    key, its other lanes SENTINEL (JAX's _unique_pad; the sharded BFS's
+    local dedup)."""
+    s = torch.sort(keys).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    return torch.where(first, s, SENTINEL)
 
 
 def _set_insert(skeys: torch.Tensor, bkeys: torch.Tensor

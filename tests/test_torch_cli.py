@@ -7,12 +7,22 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from metacherchant_tpu.runner import main as jax_main
 from metacherchant_tpu_torch.runner import main as port_main
 
 OUTPUTS = ("graph.txt", "seqs.fasta", "graph.gfa", "tsvs/nodes.tsv",
            "tsvs/edges.tsv")
+
+
+@pytest.fixture
+def no_group_left():
+    """Destroys the process group the test formed (the sharded engine forms
+    one of world size 1 in this process), so that no later test meets it."""
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 @pytest.fixture(scope="module")
@@ -195,12 +205,18 @@ def test_unported_paths_fail_clearly(recipe, long_recipe, k, extra, env,
 
 @pytest.mark.parametrize("engine", ["merge", "chunk", "sharded"])
 def test_other_count_engines_still_fail_clearly(recipe, engine, tmp_path,
-                                                monkeypatch):
+                                                monkeypatch, no_group_left):
+    """The counting engines the port once refused now run the tool: files
+    byte-identical to the JAX package's under the same MC_COUNT_ENGINE."""
     monkeypatch.setenv("MC_PLATFORM", "cpu")
     monkeypatch.setenv("MC_COUNT_ENGINE", engine)
-    assert port_main(_args(recipe, 21, tmp_path / "out", tmp_path / "wd")) == 1
-    assert "not yet ported" in _log(tmp_path / "wd")
-    assert not os.path.exists(tmp_path / "wd" / "SUCCESS")
+    assert jax_main(_args(recipe, 21, tmp_path / "oj", tmp_path / "wj")) == 0
+    assert port_main(_args(recipe, 21, tmp_path / "ot", tmp_path / "wt")) == 0
+    got, want = _tree(tmp_path / "ot"), _tree(tmp_path / "oj")
+    assert sorted(got) == sorted(want) and len(got) == 10
+    for name in want:
+        assert got[name] == want[name], name
+    assert os.path.exists(tmp_path / "wt" / "SUCCESS")
 
 
 def test_unknown_tool(capsys):

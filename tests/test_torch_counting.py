@@ -2,6 +2,7 @@
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from metacherchant_tpu import native as jax_native
 from metacherchant_tpu.counting import (
@@ -17,6 +18,15 @@ from metacherchant_tpu_torch.kmer_map import KmerMap
 CPU = torch.device("cpu")
 # small batches and tables: many batches, long-read chunking, store growth
 GEOM = dict(batch=64, max_len=96, table_log2=10)
+
+
+@pytest.fixture
+def no_group_left():
+    """Destroys the process group the test formed (the sharded engine forms
+    one of world size 1 in this process), so that no later test meets it."""
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 @pytest.fixture(scope="module")
@@ -90,19 +100,23 @@ def test_seed_keys_of_sequence_matches_jax():
 
 
 @pytest.mark.parametrize("engine", ["hash", "merge", "chunk", "sharded"])
-def test_unported_engines_raise(reads_fastq, engine, monkeypatch):
-    """merge, chunk and sharded are not ported and raise; hash is ported and
-    counts the JAX hash engine's map."""
+def test_unported_engines_raise(reads_fastq, engine, monkeypatch,
+                                no_group_left):
+    """Every engine the port once refused now counts, through
+    MC_COUNT_ENGINE: the JAX package's map under the same engine, key for
+    key ('merge' and 'chunk' are the sort engine here; 'sharded' forms a
+    process group of world size 1)."""
     monkeypatch.setenv("MC_COUNT_ENGINE", engine)
-    if engine == "hash":
-        got = count_kmers_device([reads_fastq], 21, device=CPU, **GEOM)
-        want = jax_count_device([reads_fastq], 21, None, **GEOM)
-        assert len(got) > 1000
-        assert np.array_equal(got.keys, want.keys)
-        assert np.array_equal(got.counts, want.counts)
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        count_kmers_device([reads_fastq], 21, device=CPU)
+    got = count_kmers_device([reads_fastq], 21, device=CPU, **GEOM)
+    want = jax_count_device([reads_fastq], 21, None, **GEOM)
+    assert len(got) > 1000
+    assert np.array_equal(got.keys, want.keys)
+    assert np.array_equal(got.counts, want.counts)
+
+
+def test_unknown_engine_raises(reads_fastq):
+    with pytest.raises(ValueError, match="unknown counting engine"):
+        count_kmers_device([reads_fastq], 21, device=CPU, engine="bitonic")
 
 
 @pytest.mark.parametrize("k,hasher", [(55, "poly"), (55, "fnv1a"),

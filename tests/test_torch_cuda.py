@@ -3,8 +3,9 @@ plain torch version on the card, the hashed keys, the map lookup, the device
 contraction, the hash table and the device BFS engines on the card against
 the CPU, the multiword visited set's slot election under contention, the
 device classify coverage against the host one (reads-classifier's and
-triple-reads-classifier's), and the main path on the card against the host
-oracle and against the same run on the CPU.
+triple-reads-classifier's), the sharded engine and BFS in an NCCL group of
+world size 1 against the sort engine and bfs_layered, and the main path on
+the card against the host oracle and against the same run on the CPU.
 
 They skip where torch sees no CUDA device. This file imports no JAX, so it
 also runs on a machine without it (tests/conftest.py imports JAX, hence
@@ -428,6 +429,61 @@ def test_hash_engine_on_card_matches_sort(cuda, k, hasher, tmp_path,
     assert (launches[1] > 0) == (hasher is None)
     assert np.array_equal(got.keys, want.keys)
     assert np.array_equal(got.counts, want.counts)
+
+
+@pytest.fixture
+def nccl(cuda):
+    """The sharded engine's process group of world size 1 on the card
+    (nccl), destroyed afterwards."""
+    import torch.distributed as dist
+    from metacherchant_tpu_torch.parallel.distributed import (
+        initialize_distributed)
+    initialize_distributed(device=cuda)
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    yield cuda
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("k,hasher", [(31, None), (55, "poly")])
+def test_sharded_engine_on_card_matches_sort(nccl, k, hasher, tmp_path):
+    """MC_COUNT_ENGINE=sharded at world size 1 on the card: the sort
+    engine's map; exact keys through the kernel's ragged entry as often as
+    the sort engine's (batch // 1 chunks a launch)."""
+    path = str(tmp_path / "reads.fastq")
+    _write_fastq(path, 10)
+    geom = dict(batch=256, max_len=128, table_log2=10)
+    maps, launches = {}, {}
+    for engine in ("sort", "sharded"):
+        before = extract_cuda.LAUNCHES
+        maps[engine] = count_kmers_device([path], k, hasher, device=nccl,
+                                          engine=engine, **geom)
+        launches[engine] = extract_cuda.LAUNCHES - before
+    assert launches["sharded"] == launches["sort"]
+    assert (launches["sort"] > 0) == (hasher is None)
+    assert np.array_equal(maps["sharded"].keys, maps["sort"].keys)
+    assert np.array_equal(maps["sharded"].counts, maps["sort"].counts)
+
+
+@pytest.mark.parametrize("direction", [-1, 1, 0])
+def test_sharded_bfs_on_card_matches_host(nccl, direction):
+    """run_sharded_bfs at world size 1 on the card: bfs_layered's set."""
+    from metacherchant_tpu_torch.algo.environment import bfs_layered
+    from metacherchant_tpu_torch.parallel.sharded_bfs import run_sharded_bfs
+    rng = np.random.default_rng(3)
+    genome = "".join(rng.choice(list("ACGT"), 20_000))
+    kmap = KmerMap.from_dict(count_kmers_host_of(genome, 21))
+    seeds = np.unique(rng.choice(kmap.keys, 500, replace=False))
+    want = bfs_layered(seeds, kmap, 21, 1, direction, 30).visited
+    got = run_sharded_bfs(seeds, kmap, 21, 1, direction, 30, device=nccl)
+    assert want.size > seeds.size and np.array_equal(got, want)
+
+
+def count_kmers_host_of(seq: str, k: int) -> dict[int, int]:
+    from metacherchant_tpu_torch.counting import _count_codes_into
+    from metacherchant_tpu_torch.dna import encode
+    counts: dict[int, int] = {}
+    _count_codes_into(counts, encode(seq), k, None)
+    return counts
 
 
 def test_multiword_set_election_many_rows_on_few_slots(cuda):

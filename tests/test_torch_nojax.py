@@ -195,3 +195,19 @@ def test_last_three_tools_run_without_jax(tmp_path):
     assert (tmp_path / "wf" / "output" / "1" / "merged" / "seqs.fasta") \
         .stat().st_size > 0
     assert not (tmp_path / "wf" / "2").joinpath("hic_map.txt").exists()
+
+
+def test_sharded_engine_runs_without_jax(tmp_path):
+    """environment-finder under MC_COUNT_ENGINE=sharded (a process group of
+    world size 1 on the CPU's gloo) and under `merge`: the same files."""
+    g, reads = _reads(tmp_path)
+    genes = tmp_path / "genes.fasta"
+    genes.write_text(f">geneA\n{g[1000:1120]}\n")
+    out = tmp_path / "out"
+    for engine in ("sharded", "merge"):
+        _run(["-t", "environment-finder", "-k", "21", "-i", str(reads),
+              "--seq", str(genes), "-o", str(out / engine), "--coverage",
+              "3", "--maxradius", "100", "--work-dir",
+              str(tmp_path / engine)], env={"MC_COUNT_ENGINE": engine})
+    got = (out / "sharded" / "geneA" / "graph.txt").read_bytes()
+    assert got and got == (out / "merge" / "geneA" / "graph.txt").read_bytes()
