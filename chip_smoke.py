@@ -6,12 +6,14 @@ Drives metacherchant_tpu_torch's paths (environment-finder in the exact and
 hashed regimes, kmer-counter -> reads-classifier, triple-reads-classifier,
 seq-cov, the three FMT tools, environment-assembler-finder, hic-pipeline,
 environment-finder-multi, the device contraction, the device BFS engines,
-the `sort`, `hash` and `sharded` counting engines, the sharded BFS) at a
-real data size and checks them:
+the `sort` (each consolidation route), `merge`, `chunk`, `hash` and
+`sharded` counting engines, the sharded BFS) at a real data size and checks
+them:
 
   1. device         the card's name and power limit;
   2. build          the CUDA extraction kernel (nvcc, sm_90a) and the native
-                    host libraries, all from this checkout's sources;
+                    host libraries (g++), all from the sources in
+                    metacherchant_tpu_torch/csrc/;
   3. kernel         both entries of the kernel against their plain torch
                     versions on the card, bit for bit, for several k, with
                     the kernel's, the plain version's and the bound's times
@@ -49,8 +51,10 @@ real data size and checks them:
                     seconds and layers per direction, peak device memory;
  10. classify slice kmer-counter -k 31 on the data of phase 5, then
                     reads-classifier on its dump for 333,334 read pairs (half
-                    from those genomes, half from 20 others), with the host
-                    coverage and with MC_DEVICE_CLASSIFY, bins compared;
+                    from those genomes, half from 20 others) with
+                    MC_DEVICE_CLASSIFY, and on a quarter of the pairs with
+                    the host coverage and with MC_DEVICE_CLASSIFY, bins
+                    compared;
  11. contract-ops   the device contraction (contract_codes_device) on about
                     400K canonical 31-mers (a 400 kbp genome, cycles, color
                     tags) on the card against the CPU, bit for bit, with the
@@ -59,16 +63,18 @@ real data size and checks them:
                     against the CPU;
  12. triple-slice   kmer-counter -k 55 on the data of phase 5, then
                     triple-reads-classifier -k 31 -k2 55 on the dumps for the
-                    read pairs of phase 9, host and device coverage, nine
+                    read pairs of phase 10 with device coverage, and on a
+                    quarter of the pairs with host and device coverage, nine
                     bins compared;
  13. seq-cov        small bins on the card against the CPU, then four bins of
                     the reads of phase 5 against the three genes and three
                     pieces of the other genomes (breadth near 1 and 0);
  14. fmt            synthetic donor, before and after metagenomes of 400 kbp
                     (20x, 0.1% substitutions) and their classified bins:
-                    fmt-visualiser -k 31 with the host sweep and with
+                    fmt-visualiser -k 31 with MC_DEVICE_CONTRACT=1, and on
+                    metagenomes of 100 kbp with the host sweep and with
                     MC_DEVICE_CONTRACT=1 (same unitigs and colors),
-                    recipient-visualiser on three genes, and on a 20 kbp set
+                    recipient-visualiser on three genes, and on a 10 kbp set
                     of error-free reads fmt-visualizer -k 31 and
                     fmt-visualiser -k 55 on the card against the CPU, byte
                     for byte;
@@ -92,12 +98,25 @@ real data size and checks them:
                     count_kmers_device with MC_COUNT_ENGINE=sharded on the
                     reads of phase 5 at k=31 and k=55 against the sort
                     engine, key for key, with the kernel's launches, seconds,
-                    peak memory and the collectives' device ms; merge and
-                    chunk (the sort engine) likewise; a small sharded count
-                    against count_kmers_host; environment-finder -k 31 under
-                    MC_COUNT_ENGINE=sharded against phase 5's files;
-                    run_sharded_bfs on phase 9's wide frontier against
-                    bfs_layered in every direction.
+                    peak memory and the collectives' device ms; a small
+                    sharded count against count_kmers_host;
+                    environment-finder -k 31 under MC_COUNT_ENGINE=sharded
+                    against phase 5's files; run_sharded_bfs on phase 9's
+                    wide frontier in every direction, both directions
+                    against bfs_layered;
+ 19. count-engines  count_kmers_device on the reads of phase 5 at k=31 under
+                    the sort engine's sort2 route, its default auto (merge-
+                    split at 2^25 + 2^25 lanes), MC_SORT_COMPACTION=shift,
+                    and the merge and chunk engines, and at k=55 under
+                    sort2, merge and chunk, each key for key against sort2,
+                    with consolidations by route, seconds, kernel launches
+                    and peak memory; one consolidation by each route at the
+                    slice's final geometry under torch.profiler (sort2,
+                    shift and merge-split lane for lane equal); the chunk
+                    engine's largest launch against the plain version with
+                    its share of the byte bound; environment-finder -k 31
+                    under MC_COUNT_ENGINE=merge and chunk against phase 5's
+                    files.
 
 Every phase prints its own lines and its seconds; any failure exits
 non-zero. The last two lines are the kernels' JSON record and the device
@@ -108,6 +127,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import logging
@@ -137,7 +157,7 @@ TRIPLE_K2 = 55
 #: gone recipient strains, one shared by both, one new in the recipient
 FMT_PARTS = {"settle": 150, "not_settle": 200, "stay": 150, "gone": 200,
              "shared": 50, "new": 50}
-FMT_SMALL = 20  # the 20 kbp set: every part divided by this
+FMT_SMALL = 40  # the 10 kbp set: every part divided by this
 #: the JAX package's device-BFS workload B (algo/environment.py:264-267)
 WIDE_GENOME, WIDE_SEEDS, WIDE_RADIUS = 400_000, 65_536, 50
 #: a hash table just below its growth load (0.643 of 2^25 slots), as the
@@ -233,7 +253,9 @@ def phase_build() -> None:
         say("build", "  " + line.strip())
     t0 = time.perf_counter()
     parser, bfs = native.available(), native.bfs_available()
-    say("build", f"native host libraries in {time.perf_counter() - t0:.2f} s: "
+    say("build", f"native host libraries from "
+                 f"{native.SRC_DIR.relative_to(native.SRC_DIR.parents[1])}/"
+                 f"{{fastio,bfs}}.cpp in {time.perf_counter() - t0:.2f} s: "
                  f"native parser {'in use' if parser else 'NOT available'}, "
                  f"native BFS {'in use' if bfs else 'NOT available'}")
 
@@ -329,13 +351,17 @@ def _timed_pair(kern, plain) -> dict:
 def _record(what: str, k: int, err: int, times: dict, nbytes: int,
             card: str, wrapper_ms: float | None = None) -> dict:
     """One shape's line and record. ms is the kernel's device time, or its
-    time per call where the profiler saw no device time."""
-    ms = times["device_ms"] or times["call_ms"]
+    time per call where the profiler saw no device time or less than the
+    bound (it missed launches: no kernel beats the bound)."""
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    if times["device_ms"] is not None and times["device_ms"] < bound_ms:
+        times = {**times, "device_ms": None}
+    ms = times["device_ms"] or times["call_ms"]
     rec = {"shape": what, "k": k, "max_abs_err": err, "ms": ms, **times,
            "wrapper_ms": wrapper_ms, "bytes": nbytes, "bound_ms": bound_ms,
            "share_of_bound": bound_ms / ms}
-    dev = ("device time not measured" if times["device_ms"] is None
+    dev = ("device time not measured (the profiler saw none, or less "
+           "than the bound)" if times["device_ms"] is None
            else f"{times['device_ms']:.4f} ms on the device")
     wrap = ("" if wrapper_ms is None
             else f", {wrapper_ms:.4f} ms with the fault check")
@@ -680,20 +706,25 @@ def phase_hashed_ops(rng, card: str) -> None:
             say("hashed-ops", f"k={k} {hasher:5s} ({BATCH}x{LEN} int8 codes): "
                               f"bit-equal to the CPU; {ms:.4f} ms per batch "
                               f"on the card ({card})")
-    t0 = time.perf_counter()
-    keys = np.unique(rng.integers(np.iinfo(np.int64).min,
-                                  np.iinfo(np.int64).max, LOOKUP_KEYS,
-                                  dtype=np.int64))
+    stamps = [time.perf_counter()]
+
+    def any_int64(n: int) -> np.ndarray:
+        """n uniform int64 values over the whole range (random bytes)."""
+        return np.frombuffer(rng.bytes(8 * n), np.int64)
+
+    keys = np.unique(any_int64(LOOKUP_KEYS))
+    stamps.append(time.perf_counter())
     kmap = KmerMap(keys, rng.integers(1, 100, keys.size))
+    stamps.append(time.perf_counter())
     half = LOOKUP_QUERIES // 2
-    q = np.concatenate([rng.choice(keys, half),
-                        rng.integers(np.iinfo(np.int64).min,
-                                     np.iinfo(np.int64).max,
-                                     LOOKUP_QUERIES - half, dtype=np.int64)])
-    q = rng.permutation(q)
+    q = rng.permutation(np.concatenate([rng.choice(keys, half),
+                                        any_int64(LOOKUP_QUERIES - half)]))
+    stamps.append(time.perf_counter())
     say("hashed-ops", f"lookup data: {keys.size} keys ({int((keys < 0).sum())}"
                       f" with the top bit set), {q.size} queries, made in "
-                      f"{time.perf_counter() - t0:.1f} s")
+                      f"{stamps[-1] - stamps[0]:.1f} s (keys, map, queries: "
+                      + ", ".join(f"{b - a:.1f}" for a, b in
+                                  zip(stamps, stamps[1:])) + " s)")
     t0 = time.perf_counter()
     want = kmap.get_many(q)
     t_host = time.perf_counter() - t0
@@ -791,7 +822,7 @@ def hash_engine_checks(rng, fq: str, small_fq: str, card: str) -> int:
     from metacherchant_tpu_torch.ops.kmers import SENTINEL
     dev = torch.device("cuda")
     maps, secs, launches = {}, {}, {}
-    for engine in ("sort", "hash", "hash", "sort"):
+    for engine in ("sort", "hash"):
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
         extract_cuda.LAUNCHES = 0
@@ -820,8 +851,8 @@ def hash_engine_checks(rng, fq: str, small_fq: str, card: str) -> int:
           and np.array_equal(small["cuda"].counts, small["cpu"].counts),
           "the hash engine's table on CUDA differs from the CPU's")
     say("device-bfs", f"hash engine == sort engine key for key "
-                      f"({len(sort_map)} keys; sort {min(secs['sort']):.3f} "
-                      f"s, hash {min(secs['hash']):.3f} s, best of two); "
+                      f"({len(sort_map)} keys; sort {secs['sort'][0]:.3f} "
+                      f"s, hash {secs['hash'][0]:.3f} s); "
                       f"small set: card items == CPU items "
                       f"({len(small['cpu'])} keys)")
     t0 = time.perf_counter()
@@ -1074,41 +1105,54 @@ def phase_classify_slice(rng, genomes: np.ndarray, fq: str, tmp: str,
                           f"graph's genomes, {CLASSIFY_PAIRS - n_a} from 20 "
                           f"other genomes; written in "
                           f"{time.perf_counter() - t0:.1f} s")
+    quarter = CLASSIFY_PAIRS // 4
+    reads = {"all": [r1, r2],
+             "quarter": [head_fastq(r, os.path.join(tmp, f"c{i}q.fastq"),
+                                    quarter) for i, r in ((1, r1), (2, r2))]}
+    pairs = {"all": CLASSIFY_PAIRS, "quarter": quarter}
     bins = {}
     launches = {}
-    for mode, env in (("host", {}), ("device", {"MC_DEVICE_CLASSIFY": "1"})):
-        out = os.path.join(tmp, f"classified_{mode}")
+    for mode, part, env in (("device", "all", {"MC_DEVICE_CLASSIFY": "1"}),
+                            ("host", "quarter", {}),
+                            ("device", "quarter", {"MC_DEVICE_CLASSIFY": "1"})):
+        out = os.path.join(tmp, f"classified_{mode}_{part}")
         run = drive(["-t", "reads-classifier", "-k", str(MAIN_K),
-                     "-i", kbin, "-r", r1, r2, "-o", out,
-                     "--work-dir", os.path.join(tmp, f"wdc_{mode}")], **env)
-        bins[mode] = tree(out)
-        launches[mode] = run.launches
+                     "-i", kbin, "-r", *reads[part], "-o", out,
+                     "--work-dir", os.path.join(tmp, f"wdc_{mode}_{part}")],
+                    **env)
+        bins[mode, part] = tree(out)
+        launches[mode, part] = run.launches
         t_loaded = run.line("Hashtable size")[0]
         t_search = run.line("Searching for")[0]
         t_done = run.line("Reads have been written")[0]
-        say("classify-slice", f"reads-classifier ({mode} coverage): "
-                              f"{run.seconds:.3f} s (graph loaded at "
-                              f"{t_loaded:.3f} s, classification "
-                              f"{t_done - t_search:.3f} s), "
-                              f"{2 * CLASSIFY_PAIRS / run.seconds:.0f} "
+        say("classify-slice", f"reads-classifier ({mode} coverage, "
+                              f"{pairs[part]} pairs): {run.seconds:.3f} s "
+                              f"(graph loaded at {t_loaded:.3f} s, "
+                              f"classification {t_done - t_search:.3f} s), "
+                              f"{2 * pairs[part] / run.seconds:.0f} "
                               f"classified reads/s, kernel launches "
                               f"{run.launches} ({card})")
-    check(len(bins["host"]) == 6 and bins["host"] == bins["device"],
+    check(len(bins["host", "quarter"]) == 6
+          and bins["host", "quarter"] == bins["device", "quarter"],
           "the six bins of the device classify run differ from the host run")
-    want = 2 * -(-CLASSIFY_PAIRS // CLASSIFY_BATCH)
-    check(launches["device"] == want and launches["host"] == 0,
-          f"classify launches: device {launches['device']} (want {want}), "
-          f"host {launches['host']} (want 0)")
-    share = found_shares(bins["host"], {"A": (a1, a2), "B": (b1, b2)})
+    want = {part: 2 * -(-n // CLASSIFY_BATCH) for part, n in pairs.items()}
+    check(launches["device", "all"] == want["all"]
+          and launches["device", "quarter"] == want["quarter"]
+          and launches["host", "quarter"] == 0,
+          f"classify launches: {launches} (want device {want}, host 0)")
+    share = found_shares(bins["device", "all"],
+                         {"A": (a1, a2), "B": (b1, b2)})
     say("classify-slice", f"six bins byte-identical between host and device "
-                          f"coverage; device launches {launches['device']} = "
-                          f"2 x ceil({CLASSIFY_PAIRS} / {CLASSIFY_BATCH}); "
+                          f"coverage on {quarter} pairs; on all pairs device "
+                          f"launches {launches['device', 'all']} = 2 x "
+                          f"ceil({CLASSIFY_PAIRS} / {CLASSIFY_BATCH}); "
                           f"found: {share['A']:.4f} of the graph genomes' "
                           f"reads, {share['B']:.4f} of the others'")
     check(share["A"] >= 0.70 and share["B"] <= 0.01,
           f"found shares A {share['A']:.4f} (want >= 0.70), "
           f"B {share['B']:.4f} (want <= 0.01)")
-    return {"counter": counter_launches, "classify": launches["device"],
+    return {"counter": counter_launches,
+            "classify": launches["device", "all"],
             "kbin": kbin, "r1": r1, "r2": r2,
             "mates": {"A": (a1, a2), "B": (b1, b2)}, "genomes_b": genomes_b}
 
@@ -1127,9 +1171,9 @@ def contract_end_to_end(keys: np.ndarray, card: str) -> None:
     """A picture's contraction end to end on the canonical k-mers of reads
     (20x, 0.1% substitutions, so tips and bubbles; no cycle, where the two
     routes may linearize differently): the host
-    sweep (build_node_graph + do_merge) against contract_device (tags,
-    transfers, the card, host assembly), in turns; fails unless their
-    unitig sets agree."""
+    sweep (build_node_graph + do_merge) once against contract_device (tags,
+    transfers, the card, host assembly) twice; fails unless their unitig
+    sets agree."""
     from metacherchant_tpu_torch.algo.contraction import (build_node_graph,
                                                           do_merge)
     from metacherchant_tpu_torch.algo.environment import ascii_min_orient
@@ -1147,8 +1191,7 @@ def contract_end_to_end(keys: np.ndarray, card: str) -> None:
 
     secs = {"host": [], "device": []}
     seqs = {}
-    for name, fn in (("host", host), ("device", device), ("device", device),
-                     ("host", host)):
+    for name, fn in (("host", host), ("device", device), ("device", device)):
         gc.collect()
         t0 = time.perf_counter()
         nodes = fn()
@@ -1158,10 +1201,9 @@ def contract_end_to_end(keys: np.ndarray, card: str) -> None:
     check(seqs["host"] == seqs["device"],
           "contract_device's unitigs differ from the host sweep's")
     say("contract-ops", f"a picture of {len(kmers)} k-mers end to end: host "
-                        f"sweep {min(secs['host']):.3f} s, contract_device "
-                        f"{min(secs['device']):.3f} s (runs: host "
-                        f"{secs['host'][0]:.3f}, {secs['host'][1]:.3f} s; "
-                        f"device {secs['device'][0]:.3f}, "
+                        f"sweep {secs['host'][0]:.3f} s, contract_device "
+                        f"{min(secs['device']):.3f} s (runs: "
+                        f"{secs['device'][0]:.3f}, "
                         f"{secs['device'][1]:.3f} s); the same "
                         f"{len(seqs['host']) // 2} unitigs ({card})")
 
@@ -1227,8 +1269,20 @@ def phase_contract_ops(rng, tmp: str, small_fq: str, card: str) -> int:
     return launches
 
 
+def head_fastq(src: str, dst: str, n: int) -> str:
+    """The first n records of a FASTQ file, written to dst."""
+    with open(src, "rb") as fh:
+        lines = fh.readlines()[:4 * n]
+    with open(dst, "wb") as fh:
+        fh.writelines(lines)
+    return dst
+
+
 def phase_triple_slice(fq: str, cls: dict, tmp: str, card: str) -> int:
-    """Returns the kernel launches of the device-coverage run."""
+    """The device-coverage run on every pair; the host-coverage run, whose
+    nine bins it must equal, on the first quarter of the pairs against a
+    device run on the same quarter. Returns the kernel launches of the
+    device-coverage run on every pair."""
     kmers55 = os.path.join(tmp, "kmers55")
     run = drive(["-t", "kmer-counter", "-k", str(TRIPLE_K2), "-i", fq,
                  "-o", kmers55, "--work-dir", os.path.join(tmp, "wdk55")])
@@ -1238,41 +1292,53 @@ def phase_triple_slice(fq: str, cls: dict, tmp: str, card: str) -> int:
     say("triple-slice", f"kmer-counter -k {TRIPLE_K2}: "
                         f"{os.path.getsize(kbin55) // 10} records; "
                         f"{run.seconds:.3f} s ({card})")
+    quarter = CLASSIFY_PAIRS // 4
+    reads = {"all": [cls["r1"], cls["r2"]],
+             "quarter": [head_fastq(cls[r], os.path.join(tmp, f"{r}q.fastq"),
+                                    quarter) for r in ("r1", "r2")]}
+    pairs = {"all": CLASSIFY_PAIRS, "quarter": quarter}
     bins, launches = {}, {}
-    for mode, env in (("host", {}), ("device", {"MC_DEVICE_CLASSIFY": "1"})):
-        out = os.path.join(tmp, f"triple_{mode}")
+    for mode, part, env in (("device", "all", {"MC_DEVICE_CLASSIFY": "1"}),
+                            ("host", "quarter", {}),
+                            ("device", "quarter", {"MC_DEVICE_CLASSIFY": "1"})):
+        out = os.path.join(tmp, f"triple_{mode}_{part}")
         run = drive(["-t", "triple-reads-classifier", "-k", str(MAIN_K),
                      "-k2", str(TRIPLE_K2), "-ik1", cls["kbin"],
-                     "-ik2", kbin55, "-r", cls["r1"], cls["r2"], "-o", out,
-                     "--work-dir", os.path.join(tmp, f"wdt_{mode}")], **env)
-        bins[mode] = tree(out)
-        launches[mode] = run.launches
+                     "-ik2", kbin55, "-r", *reads[part], "-o", out,
+                     "--work-dir", os.path.join(tmp, f"wdt_{mode}_{part}")],
+                    **env)
+        bins[mode, part] = tree(out)
+        launches[mode, part] = run.launches
         t_pass2 = [t for t, m in run.log
                    if m.startswith(f"Building graph with k = {TRIPLE_K2}")]
-        say("triple-slice", f"triple-reads-classifier ({mode} coverage): "
-                            f"{run.seconds:.3f} s (pass 1 ended at "
-                            f"{t_pass2[0]:.3f} s), "
-                            f"{2 * CLASSIFY_PAIRS / run.seconds:.0f} "
+        say("triple-slice", f"triple-reads-classifier ({mode} coverage, "
+                            f"{pairs[part]} pairs): {run.seconds:.3f} s "
+                            f"(pass 1 ended at {t_pass2[0]:.3f} s), "
+                            f"{2 * pairs[part] / run.seconds:.0f} "
                             f"classified reads/s, kernel launches "
                             f"{run.launches} ({card})")
-    check(len(bins["host"]) == 9 and bins["host"] == bins["device"],
+    check(len(bins["host", "quarter"]) == 9
+          and bins["host", "quarter"] == bins["device", "quarter"],
           "the nine bins of the device triple run differ from the host run")
-    want = 4 * -(-CLASSIFY_PAIRS // CLASSIFY_BATCH)
-    check(launches["device"] == want and launches["host"] == 0,
-          f"triple launches: device {launches['device']} (want {want}), "
-          f"host {launches['host']} (want 0)")
-    share = found_shares(bins["host"], cls["mates"])
-    sizes = {n[:-6]: b.count(b"\n+\n") for n, b in sorted(bins["host"].items())}
+    want = {part: 4 * -(-n // CLASSIFY_BATCH) for part, n in pairs.items()}
+    check(launches["device", "all"] == want["all"]
+          and launches["device", "quarter"] == want["quarter"]
+          and launches["host", "quarter"] == 0,
+          f"triple launches: {launches} (want device {want}, host 0)")
+    share = found_shares(bins["device", "all"], cls["mates"])
+    sizes = {n[:-6]: b.count(b"\n+\n")
+             for n, b in sorted(bins["device", "all"].items())}
     say("triple-slice", f"nine bins byte-identical between host and device "
-                        f"coverage ({sizes}); device launches "
-                        f"{launches['device']} = 4 x ceil({CLASSIFY_PAIRS} / "
-                        f"{CLASSIFY_BATCH}) in pass 1, none at k2; found: "
+                        f"coverage on {quarter} pairs; on all pairs "
+                        f"{sizes}, device launches {launches['device', 'all']}"
+                        f" = 4 x ceil({CLASSIFY_PAIRS} / {CLASSIFY_BATCH}) "
+                        f"in pass 1, none at k2; found: "
                         f"{share['A']:.4f} of the graph genomes' reads, "
                         f"{share['B']:.4f} of the others'")
     check(share["A"] >= 0.70 and share["B"] <= 0.01,
           f"triple found shares A {share['A']:.4f} (want >= 0.70), "
           f"B {share['B']:.4f} (want <= 0.01)")
-    return launches["device"]
+    return launches["device", "all"]
 
 
 def split_fastq(src: str, paths: list[str]) -> list[int]:
@@ -1415,39 +1481,48 @@ def segments(gfa: bytes) -> list[tuple[str, str]]:
 
 
 def phase_fmt(rng, tmp: str, card: str) -> tuple[int, int]:
-    """Returns the kernel launches of fmt-visualiser (device contraction)
-    and of recipient-visualiser."""
+    """fmt-visualiser with the device contraction on the 400 kbp
+    metagenomes, and with the host sweep against it on metagenomes of a
+    quarter of that size. Returns the kernel launches of fmt-visualiser
+    (device contraction, 400 kbp) and of recipient-visualiser."""
     from collections import Counter
     t0 = time.perf_counter()
-    bins, paths = fmt_data(rng, tmp, 1, 0.001)
+    data = {1: fmt_data(rng, tmp, 1, 0.001), 4: fmt_data(rng, tmp, 4, 0.001)}
+    bins, paths = data[1]
     say("fmt", f"data: {sum(FMT_PARTS.values())} kbp in 6 genomes; donor, "
                f"before, after of 400 kbp at 20x (0.1% substitutions), 24 "
-               f"bin files; written in {time.perf_counter() - t0:.1f} s")
+               f"bin files; the same at a quarter of the size; written in "
+               f"{time.perf_counter() - t0:.1f} s")
     pics, launches = {}, {}
-    for mode, flag in (("host", "0"), ("device", "1")):
-        out = os.path.join(tmp, f"fmt_{mode}")
-        run = drive(fmt_args("fmt-visualiser", MAIN_K, bins, paths, out,
-                             os.path.join(tmp, f"wdf_{mode}")),
+    for mode, flag, scale in (("device", "1", 1), ("host", "0", 4),
+                              ("device", "1", 4)):
+        out = os.path.join(tmp, f"fmt_{mode}{scale}")
+        run = drive(fmt_args("fmt-visualiser", MAIN_K, *data[scale], out,
+                             os.path.join(tmp, f"wdf_{mode}{scale}")),
                     MC_DEVICE_CONTRACT=flag)
-        pics[mode] = tree(out)
-        launches[mode] = run.launches
+        pics[mode, scale] = tree(out)
+        launches[mode, scale] = run.launches
         stamps = {m.split()[1]: t for t, m in run.log
                   if m.startswith("Creating ") and m.endswith(" image ...")}
-        say("fmt", f"fmt-visualiser -k {MAIN_K} ({mode} contraction): "
-                   f"{run.seconds:.3f} s (images begin at "
-                   f"{', '.join(f'{n} {t:.3f} s' for n, t in stamps.items())}"
+        say("fmt", f"fmt-visualiser -k {MAIN_K} ({mode} contraction, "
+                   f"{400 // scale} kbp): {run.seconds:.3f} s (images begin "
+                   f"at {', '.join(f'{n} {t:.3f} s' for n, t in stamps.items())}"
                    f"), kernel launches {run.launches} ({card})")
-    check(sorted(pics["host"]) == sorted(pics["device"])
-          and len(pics["host"]) == 6, "fmt-visualiser output files differ")
+    check(len(pics["device", 1]) == 6
+          and sorted(pics["host", 4]) == sorted(pics["device", 4])
+          and len(pics["host", 4]) == 6, "fmt-visualiser output files differ")
     for name in ("donor", "before", "after"):
-        host = segments(pics["host"][f"{name}.gfa"])
-        dev = segments(pics["device"][f"{name}.gfa"])
+        host = segments(pics["host", 4][f"{name}.gfa"])
+        dev = segments(pics["device", 4][f"{name}.gfa"])
         check(host == dev, f"{name}.gfa: the device contraction's unitigs "
                            f"or colors differ from the host sweep's")
-        colors = Counter(c for _, c in host)
-        say("fmt", f"{name}.gfa: {len(host)} unitigs, the same set and "
-                   f"colors with either contraction; colors {dict(colors)}")
-    check(launches["host"] == launches["device"] > 0,
+        full = segments(pics["device", 1][f"{name}.gfa"])
+        colors = Counter(c for _, c in full)
+        say("fmt", f"{name}.gfa: {len(full)} unitigs at 400 kbp, colors "
+                   f"{dict(colors)}; at 100 kbp {len(host)} unitigs, the "
+                   f"same set and colors with either contraction")
+    check(launches["host", 4] == launches["device", 4] > 0
+          and launches["device", 1] > 0,
           f"fmt-visualiser launches {launches}")
     out = os.path.join(tmp, "recipient")
     run = drive(fmt_args("recipient-visualiser", MAIN_K, bins, paths, out,
@@ -1482,7 +1557,7 @@ def phase_fmt(rng, tmp: str, card: str) -> tuple[int, int]:
                    f"metagenomes: {len(outs['cuda'])} files byte-identical "
                    f"between cuda ({secs['cuda']:.3f} s) and cpu "
                    f"({secs['cpu']:.3f} s)")
-    return launches["device"], recipient
+    return launches["device", 1], recipient
 
 
 # the stub bwa of tests/test_hic_pipeline.py: 'index' is a no-op, 'mem'
@@ -1631,19 +1706,16 @@ def phase_assembler(fq: str, genes: str, small_fq: str, n_reads: int,
     checker = SubgraphChecker(list(load_graph_txt(os.path.join(out,
                                                                "graph.txt"))),
                               MAIN_K, None)
-    secs = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        n = filter_reads_file(fq, checker, os.path.join(tmp, "asm_filter"), 0,
-                              ASM_PF)
-        secs.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    n = filter_reads_file(fq, checker, os.path.join(tmp, "asm_filter"), 0,
+                          ASM_PF)
+    secs = time.perf_counter() - t0
     with open(os.path.join(tmp, "asm_filter", "cutReads0.fasta"), "rb") as fh:
         check(n == kept and fh.read() == cut_bytes,
               "filter_reads_file alone differs from the tool's cutReads0")
     say("assembler", f"read filter alone over {n_reads} reads "
                      f"({len(checker._keys)} environment k-mers): "
-                     f"{min(secs):.3f} s, {n_reads / min(secs):.0f} reads/s "
-                     f"(best of two: {secs[0]:.3f}, {secs[1]:.3f} s; the "
+                     f"{secs:.3f} s, {n_reads / secs:.0f} reads/s (the "
                      f"host) ({card})")
     small_genes = os.path.join(tmp, "small_genes.fasta")
     outs = {}
@@ -1844,7 +1916,10 @@ class CollectiveCalls:
 
 def sharded_bfs_checks(tmp: str, card: str) -> None:
     """run_sharded_bfs on the wide frontier's data (phase 9: 400 kbp,
-    65,536 seeds, radius 50) against bfs_layered, every direction."""
+    65,536 seeds, radius 50) in every direction: both directions (0)
+    against bfs_layered, and each single direction's set holding the seeds
+    inside that one (bfs_layered's numpy layers take 10-15 s a
+    direction)."""
     from metacherchant_tpu_torch.algo.environment import (
         bfs_layered, seed_codes_of_sequences)
     from metacherchant_tpu_torch.counting import count_kmers_device
@@ -1857,10 +1932,12 @@ def sharded_bfs_checks(tmp: str, card: str) -> None:
     seeds = np.asarray(seed_codes_of_sequences(seqs, MAIN_K, kmap, 1),
                        np.int64)
     check(seeds.size == WIDE_SEEDS, f"{seeds.size} wide-frontier seeds")
-    for direction in (-1, 1, 0):
-        t0 = time.perf_counter()
-        want = bfs_layered(seeds, kmap, MAIN_K, 1, direction, WIDE_RADIUS)
-        t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    both = bfs_layered(seeds, kmap, MAIN_K, 1, 0, WIDE_RADIUS).visited
+    t_host = time.perf_counter() - t0
+    say("sharded", f"bfs_layered on the wide frontier, both directions: "
+                   f"{both.size} visited in {t_host:.3f} s (host)")
+    for direction in (0, -1, 1):
         torch.cuda.reset_peak_memory_stats()
         stamps = _Stamps()
         log = logging.getLogger("metacherchant")
@@ -1878,22 +1955,28 @@ def sharded_bfs_checks(tmp: str, card: str) -> None:
             log.setLevel(level)
         layers = [m for _, m, _ in stamps.records if "sharded BFS" in m]
         check(len(layers) == 1, f"{len(layers)} sharded BFS log lines")
-        check(np.array_equal(got, want.visited),
-              f"run_sharded_bfs direction {direction} differs from "
-              f"bfs_layered")
+        if direction == 0:
+            check(np.array_equal(got, both), "run_sharded_bfs direction 0 "
+                                             "differs from bfs_layered")
+            holds = "equal to bfs_layered"
+        else:
+            check(np.isin(seeds, got).all() and np.isin(got, both).all(),
+                  f"run_sharded_bfs direction {direction}: not the seeds "
+                  f"and a part of both directions' set")
+            holds = "the seeds and a part of direction 0's set"
         say("sharded", f"run_sharded_bfs on the wide frontier ({len(kmap)} "
                        f"k-mers, {WIDE_SEEDS} seeds, radius {WIDE_RADIUS}), "
-                       f"direction {direction:2d}: {got.size} visited, equal "
-                       f"to bfs_layered (host {t_host:.3f} s); "
-                       f"{t_dev:.3f} s on the card ({layers[0]}), peak "
-                       f"device memory {_peak_gib():.3f} GiB; collectives: "
+                       f"direction {direction:2d}: {got.size} visited, "
+                       f"{holds}; {t_dev:.3f} s on the card ({layers[0]}), "
+                       f"peak device memory {_peak_gib():.3f} GiB; "
+                       f"collectives: "
                        f"{coll.summary()} ({card})")
 
 
 def phase_sharded(rng, fq: str, small_fq: str, tmp: str, card: str) -> dict:
     """MC_COUNT_ENGINE=sharded at world size 1 on the card (an NCCL group of
-    one, destroyed at the end), the merge and chunk aliases, and the
-    sharded BFS. Returns the kernel launches by path."""
+    one, destroyed at the end) against the sort engine, and the sharded
+    BFS. Returns the kernel launches by path."""
     import torch.distributed as dist
     from metacherchant_tpu_torch.counting import (count_kmers_device,
                                                   count_kmers_host)
@@ -1909,9 +1992,7 @@ def phase_sharded(rng, fq: str, small_fq: str, tmp: str, card: str) -> dict:
         for k in (MAIN_K, HASH_K):
             hasher = None if k <= 31 else "poly"
             maps = {}
-            for engine in ("sort", "sharded", "merge", "chunk"):
-                if k > 31 and engine in ("merge", "chunk"):
-                    continue
+            for engine in ("sort", "sharded"):
                 gc.collect()
                 torch.cuda.reset_peak_memory_stats()
                 extract_cuda.LAUNCHES = 0
@@ -1938,8 +2019,7 @@ def phase_sharded(rng, fq: str, small_fq: str, tmp: str, card: str) -> dict:
                       and (launches[(engine, k)] > 0) == (k <= 31),
                       f"engine {engine} k={k}: {launches[(engine, k)]} "
                       f"launches, sort {launches[('sort', k)]}")
-            say("sharded", f"k={k}: " + ", ".join(
-                e for e in maps if e != "sort") + " == sort key for key")
+            say("sharded", f"k={k}: sharded == sort key for key")
             del maps
         small = count_kmers_device([small_fq], MAIN_K, device=dev,
                                    engine="sharded")
@@ -1970,6 +2050,267 @@ def phase_sharded(rng, fq: str, small_fq: str, tmp: str, card: str) -> dict:
     finally:
         dist.destroy_process_group()
     return launches
+
+
+class ConsolidationRoutes:
+    """Counts the consolidations made inside the block by route, with their
+    lane totals: the sort engine's sort2 (ops/sortcount.consolidate, or
+    _consolidate_full_split under MC_SORT_COMPACTION=shift) and merge-split
+    routes, and the merge engine's merge_rle_compact."""
+
+    def __enter__(self):
+        from metacherchant_tpu_torch.ops import mergecount, sortcount
+        self.made = {"sort2": [], "shift": [], "merge-split": [],
+                     "merge_rle_compact": []}
+        targets = ((sortcount, "consolidate", "sort2"),
+                   (sortcount, "_consolidate_full_split", "shift"),
+                   (sortcount, "_consolidate_merge_split", "merge-split"),
+                   (mergecount, "merge_rle_compact", "merge_rle_compact"))
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name, _ in targets]
+
+        def counted(fn, route):
+            def call(*args, **kw):
+                # keys in: the store's lanes and the buffer's (or run's)
+                self.made[route].append(args[0].numel() + args[2].numel())
+                return fn(*args, **kw)
+            return call
+        for (mod, name, fn), (_, _, route) in zip(self.saved, targets):
+            setattr(mod, name, counted(fn, route))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+    def summary(self) -> str:
+        return ", ".join(
+            f"{route} {len(n)} (lanes {min(n)}-{max(n)})"
+            for route, n in self.made.items() if n) or "none"
+
+
+@contextlib.contextmanager
+def sort2_at_any_size():
+    """The sort engine's 'auto' mode consolidates by sort2 at every size
+    inside the block (the port's StreamCounter ceiling raised), so that
+    count_kmers_device runs the sort2 route at the slice's size."""
+    from metacherchant_tpu_torch.ops.sortcount import StreamCounter
+    ceiling = StreamCounter.SORT2_LANE_CEILING
+    StreamCounter.SORT2_LANE_CEILING = 1 << 62
+    try:
+        yield
+    finally:
+        StreamCounter.SORT2_LANE_CEILING = ceiling
+
+
+def _device_ms(fn, reps: int = 3) -> tuple[float | None, float]:
+    """(device ms of every kernel one call of `fn` runs, from torch.profiler
+    over `reps` calls, or None when it saw none; ms per call between CUDA
+    events), warm."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_self_device_us(ev) for ev in prof.key_averages())
+    return (us / 1e3 / reps if us else None), _time_ms(fn, reps)
+
+
+def consolidation_ms(keys: np.ndarray, cnts: np.ndarray, card: str) -> dict:
+    """One consolidation by each route at the slice's final geometry: the
+    distinct 31-mers as a 2^25-lane store and a full 2^25-lane buffer of
+    their keys (90%) and new ones, and the merge engine's 2^25-lane store
+    with a run of 4 x 2^20 lanes. sort2, shift and merge-split return the
+    same full-length result, checked here; device ms by route."""
+    from metacherchant_tpu_torch.ops import bitonic, sortcount
+    from metacherchant_tpu_torch.ops.kmers import SENTINEL
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    lanes = 1 << 25
+    store = torch.full((lanes,), SENTINEL, dtype=torch.int64, device=dev)
+    store_c = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    store[:keys.size] = torch.from_numpy(keys).to(dev)
+    store_c[:keys.size] = torch.from_numpy(cnts).to(dev)
+    pick = rng.integers(0, keys.size, lanes)
+    new = rng.random(lanes) < 0.1
+    buf = torch.from_numpy(np.where(new, rng.integers(0, 1 << 62, lanes),
+                                    keys[pick])).to(dev)
+    run = torch.sort(buf[:1 << 22]).values
+    routes = {
+        "sort2": lambda: sortcount._consolidate_full_split(
+            store, store_c, buf, lanes),
+        "shift": lambda: sortcount._consolidate_full_split(
+            store, store_c, buf, lanes),
+        "merge-split": lambda: sortcount._consolidate_merge_split(
+            store, store_c, buf, lanes),
+        "merge_rle_compact": lambda: bitonic.merge_rle_compact(
+            store, store_c, run),
+    }
+    out, results = {}, {}
+    for route, fn in routes.items():
+        env = {"MC_SORT_COMPACTION": "shift"} if route == "shift" else {}
+        os.environ.update(env)
+        try:
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            results[route] = [t.cpu() for t in fn()]
+            dev_ms, ev_ms = _device_ms(fn)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        finally:
+            for name in env:
+                del os.environ[name]
+        out[route] = {"device_ms": dev_ms, "event_ms": ev_ms,
+                      "lanes": results[route][0].numel(), "peak_gib": peak}
+        say("count-engines", f"one consolidation by {route}: "
+                             f"{results[route][0].numel()} lanes out, "
+                             f"{int(results[route][2])} distinct; device "
+                             + (f"{dev_ms:.3f} ms" if dev_ms is not None
+                                else "time not measured")
+                             + f", {ev_ms:.3f} ms between events, "
+                             f"{peak:.3f} GiB above the inputs ({card})")
+    for route in ("shift", "merge-split"):
+        check(all(torch.equal(a, b) for a, b in
+                  zip(results[route], results["sort2"], strict=True)),
+              f"the {route} consolidation differs from sort2's, lane for lane")
+    say("count-engines", "sort2, shift and merge-split: the same full-length "
+                         "result, lane for lane")
+    return out
+
+
+def phase_count_engines(fq: str, genes: str, tmp: str, card: str) -> dict:
+    """count_kmers_device on the slice's reads under the sort engine's
+    routes and the merge and chunk engines, each key for key against
+    sort2, with consolidations by route, seconds, kernel launches and peak
+    memory; one consolidation's device ms by route at the slice's final
+    geometry; the chunk engine's largest launch against the plain version
+    with its share of the byte bound; environment-finder -k 31 under
+    MC_COUNT_ENGINE=merge and chunk against the slice's files. Returns the
+    launches by path, the chunk launch's record and the consolidations'
+    device ms."""
+    from metacherchant_tpu_torch.counting import count_kmers_device
+    from metacherchant_tpu_torch.ops import extract_cuda, sortcount
+    dev = torch.device("cuda")
+    launches, maps = {}, {}
+    chunk_calls = []
+    append = sortcount.append_ragged
+
+    def captured(buf, offset, codes, starts, lens, offs, n, k):
+        chunk_calls.append((n, codes.clone(), starts.clone(), lens.clone()))
+        return append(buf, offset, codes, starts, lens, offs, n, k)
+
+    runs = ((MAIN_K, "sort2", "sort"), (MAIN_K, "auto", "sort"),
+            (MAIN_K, "shift", "sort"), (MAIN_K, "merge", "merge"),
+            (MAIN_K, "chunk", "chunk"), (HASH_K, "sort2", "sort"),
+            (HASH_K, "merge", "merge"), (HASH_K, "chunk", "chunk"))
+    for k, label, engine in runs:
+        hasher = None if k <= 31 else "poly"
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        if label == "shift":
+            os.environ["MC_SORT_COMPACTION"] = "shift"
+        if label == "chunk" and k == MAIN_K:
+            sortcount.append_ragged = captured
+        try:
+            with contextlib.ExitStack() as stack:
+                if label in ("sort2", "shift"):
+                    stack.enter_context(sort2_at_any_size())
+                routes = stack.enter_context(ConsolidationRoutes())
+                extract_cuda.LAUNCHES = 0
+                t0 = time.perf_counter()
+                got = count_kmers_device([fq], k, hasher, device=dev,
+                                         engine=engine)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches[label, k] = extract_cuda.LAUNCHES
+        finally:
+            os.environ.pop("MC_SORT_COMPACTION", None)
+            sortcount.append_ragged = append
+        if label == "sort2":
+            maps[k] = got
+        else:
+            check(np.array_equal(got.keys, maps[k].keys)
+                  and np.array_equal(got.counts, maps[k].counts),
+                  f"k={k} {label}: the map differs from sort2's")
+        say("count-engines", f"count_kmers_device k={k} {label} (engine "
+                             f"{engine}): {len(got)} distinct keys"
+                             + ("" if label == "sort2" else
+                                ", key for key equal to sort2's")
+                             + f"; {secs:.3f} s, kernel launches "
+                             f"{launches[label, k]}, peak device memory "
+                             f"{_peak_gib():.3f} GiB; consolidations: "
+                             f"{routes.summary()} ({card})")
+        made = {r: len(n) for r, n in routes.made.items()}
+        if label in ("sort2", "shift"):
+            check(made["merge-split"] == 0 and made["merge_rle_compact"] == 0,
+                  f"k={k} {label} took another route: {made}")
+        if label == "shift":
+            check(made["shift"] > 0, f"no shift compaction: {made}")
+        if label == "auto":
+            check(max(routes.made["merge-split"], default=0) == 1 << 26,
+                  f"auto never consolidated by merge-split at 2^25 + 2^25 "
+                  f"lanes: {routes.summary()}")
+        if engine == "merge":
+            check(made["merge_rle_compact"] > 0
+                  and made["sort2"] + made["merge-split"] == 0,
+                  f"merge engine's consolidations: {made}")
+        if k == MAIN_K and engine != "chunk":
+            check(launches[label, k] == launches["sort2", k] > 0,
+                  f"k={k} {label}: {launches[label, k]} launches, sort2 "
+                  f"{launches['sort2', k]}")
+        if k > 31:
+            check(launches[label, k] == 0, f"k={k} {label}: "
+                                           f"{launches[label, k]} launches")
+    n_chunks = len(chunk_calls)
+    check(0 < launches["chunk", MAIN_K] == n_chunks
+          < launches["sort2", MAIN_K] // 4,
+          f"chunk engine: {launches['chunk', MAIN_K]} launches, "
+          f"{n_chunks} appends, sort {launches['sort2', MAIN_K]}")
+    say("count-engines", f"chunk engine k={MAIN_K}: {n_chunks} launches "
+                         f"for the sort engine's {launches['sort2', MAIN_K]}"
+                         f", windows per launch "
+                         f"{[c[0] for c in chunk_calls]}")
+    n, codes, starts, lens = max(chunk_calls, key=lambda c: c[0])
+    del chunk_calls
+    chunk_rec = hold_ragged(codes.cpu().numpy(), starts.cpu().numpy(),
+                            lens.cpu().numpy(), MAIN_K,
+                            f"chunk engine's largest launch, {lens.numel()} "
+                            f"chunks, {n} windows", card)
+    chunk_rec["launches"] = n_chunks
+    del codes, starts, lens
+    cons = consolidation_ms(maps[MAIN_K].keys, maps[MAIN_K].counts, card)
+    del maps
+    slice_out = tree(os.path.join(tmp, "out"))
+    for engine in ("merge", "chunk"):
+        out = os.path.join(tmp, f"out_{engine}")
+        torch.cuda.reset_peak_memory_stats()
+        run = drive(["-t", "environment-finder", "-k", str(MAIN_K),
+                     "-i", fq, "--seq", genes, "-o", out,
+                     "--coverage", "5", "--maxradius", "1000",
+                     "--work-dir", os.path.join(tmp, f"wd_{engine}")],
+                    MC_COUNT_ENGINE=engine)
+        check(tree(out) == slice_out,
+              f"environment-finder under MC_COUNT_ENGINE={engine} differs "
+              f"from the slice's files")
+        launches["cli", engine] = run.launches
+        check(run.launches == launches[engine, MAIN_K],
+              f"environment-finder MC_COUNT_ENGINE={engine}: "
+              f"{run.launches} launches, count {launches[engine, MAIN_K]}")
+        say("count-engines", f"environment-finder -k {MAIN_K} "
+                             f"MC_COUNT_ENGINE={engine}: {len(slice_out)} "
+                             f"files byte-identical to the slice's; "
+                             f"{run.seconds:.3f} s, counting "
+                             f"{run.line('Hashtable size')[0]:.3f} s, kernel "
+                             f"launches {run.launches}, peak device memory "
+                             f"{_peak_gib():.3f} GiB ({card})")
+    paths = {(f"environment-finder -k {MAIN_K} MC_COUNT_ENGINE={k}"
+              if label == "cli" else f"count_kmers_device -k {k} {label}"
+              + ("" if label in ("merge", "chunk") else " (sort engine)")): n
+             for (label, k), n in launches.items()}
+    return {"launches": paths, "chunk": chunk_rec, "consolidation": cons}
 
 
 def timed(name: str, card: str, fn, *args):
@@ -2033,6 +2374,8 @@ def main() -> int:
         multi = timed("multi", smi, phase_multi, tmp, smi)
         sharded = timed("sharded", smi, phase_sharded, rng, fq, small_fq,
                         tmp, smi)
+        engines = timed("count-engines", smi, phase_count_engines, fq,
+                        genes, tmp, smi)
     print(json.dumps({"kernels": [{
         "name": "extract_append",
         "route": "cuda",
@@ -2070,12 +2413,13 @@ def main() -> int:
             "hic-pipeline pass 1": hic["pass1"],
             "hic-pipeline pass 2": hic["pass2"],
             "environment-finder-multi": multi,
-            **{f"count_kmers_device -k {MAIN_K} MC_COUNT_ENGINE={e}":
-               sharded[(e, MAIN_K)] for e in ("sharded", "merge", "chunk")},
+            f"count_kmers_device -k {MAIN_K} MC_COUNT_ENGINE=sharded":
+                sharded[("sharded", MAIN_K)],
             f"count_kmers_device -k {HASH_K} MC_COUNT_ENGINE=sharded "
             "(hashed)": sharded[("sharded", HASH_K)],
             f"environment-finder -k {MAIN_K} MC_COUNT_ENGINE=sharded":
                 sharded["cli"],
+            **engines["launches"],
         },
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],
@@ -2084,7 +2428,12 @@ def main() -> int:
         "bound_by": "bytes",
         "share_of_bound": kernel["share_of_bound"],
         "library_ms": None,
-        "shapes": kernel["shapes"],
+        "chunk_launch": {key: engines["chunk"][key] for key in (
+            "launches", "ms", "plain_ms", "bound_ms", "share_of_bound")},
+        "consolidation_ms": {
+            route: {key: c[key] for key in ("device_ms", "event_ms")}
+            for route, c in engines["consolidation"].items()},
+        "shapes": kernel["shapes"] + [engines["chunk"]],
     }]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

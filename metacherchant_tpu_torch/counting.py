@@ -1,17 +1,21 @@
 """K-mer counting: stream reads -> device extraction -> device counter.
 
 Counterpart of metacherchant_tpu/counting.py for the `sort` engine
-(ops/sortcount.StreamCounter; `merge` and `chunk` name it too), the `hash`
-engine (ops/hashtable.DeviceHashTable) and the `sharded` engine
+(ops/sortcount.StreamCounter), the `chunk` engine
+(ops/sortcount.ChunkedStreamCounter), the `merge` engine
+(ops/mergecount.MergeCounter), the `hash` engine
+(ops/hashtable.DeviceHashTable) and the `sharded` engine
 (parallel/sharded_count.ShardedCounter), in the exact (k <= 31) and hashed
 (k > 31 or --forcehash, src/io/LargeKIOUtils.java:40-88) regimes. Long
-fragments are chunked with k-1 overlap so every window is counted once. With the native
-parser, exact keys come from ragged rows: per launch one contiguous slice of
-the parsed codes and its chunk table go to the device, and only real
-windows reach the append buffer. The hashed regime and the Python readers
-pack (B, L) int8 batches, -1 padded, on the host.
+fragments are chunked with k-1 overlap so every window is counted once.
+With the native parser, exact keys come from ragged rows: per launch one
+contiguous slice of the parsed codes and its chunk table go to the device,
+and only real windows reach the append buffer. The hashed regime and the
+Python readers pack (B, L) int8 batches, -1 padded, on the host.
 count_kmers_host and seed_keys_of_sequence are the host oracles;
-load_present_kmer_strings recovers the strings of a hashed map.
+count_kmers is the tools' choice between the host oracle (MC_HOST_COUNT)
+and the device; load_present_kmer_strings recovers the strings of a hashed
+map.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from .kmer_map import KmerMap
 from .ops.kmers import hash_codes_np, pack_reads
 from .ops.extract_cuda import row_offsets
 from .ops.hashtable import DeviceHashTable
-from .ops.sortcount import StreamCounter
+from .ops.mergecount import MergeCounter
+from .ops.sortcount import ChunkedStreamCounter, StreamCounter
 
 logger = logging.getLogger("metacherchant")
 
@@ -123,22 +128,30 @@ def _packed_batches(chunks: tuple[np.ndarray, np.ndarray, np.ndarray],
         yield out
 
 
-def _ragged_launches(chunks: tuple[np.ndarray, np.ndarray, np.ndarray],
-                     batch: int, k: int, device: torch.device
-                     ) -> Iterator[tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor, torch.Tensor, int]]:
-    """Per launch of `batch` chunks: the one contiguous slice of the parsed
-    codes that holds them and their rebased (starts, lens, offs) table on
-    `device`, and their window count; no padding anywhere."""
+def _ragged_tables(chunks: tuple[np.ndarray, np.ndarray, np.ndarray],
+                   batch: int, k: int
+                   ) -> Iterator[tuple[np.ndarray, np.ndarray, int]]:
+    """Per launch of `batch` chunks, on the host: the one contiguous slice
+    of the parsed codes that holds them, their rebased table (starts, offs,
+    lens) and their window count; no padding anywhere."""
     codes, cstart, clen = chunks
     for b0 in range(0, cstart.size, batch):
         cs, cl = cstart[b0:b0 + batch], clen[b0:b0 + batch]
         lo, hi = int(cs[0]), int((cs + cl).max())
-        table = np.stack([cs - lo, row_offsets(cl, k), cl])
+        yield (codes[lo:hi], np.stack([cs - lo, row_offsets(cl, k), cl]),
+               int(cl.sum()) - cl.size * (k - 1))
+
+
+def _ragged_launches(chunks: tuple[np.ndarray, np.ndarray, np.ndarray],
+                     batch: int, k: int, device: torch.device
+                     ) -> Iterator[tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor, torch.Tensor, int]]:
+    """The launches of _ragged_tables on `device`: (codes, starts, lens,
+    offs, windows)."""
+    for codes, table, n in _ragged_tables(chunks, batch, k):
         t = torch.from_numpy(table).to(device)
         starts, offs, lens = t[0], t[1], t[2].to(torch.int32)
-        yield (torch.from_numpy(codes[lo:hi]).to(device), starts, lens, offs,
-               int(cl.sum()) - cl.size * (k - 1))
+        yield torch.from_numpy(codes).to(device), starts, lens, offs, n
 
 
 def _sort_geometry(table_log2: int, batch: int, max_len: int
@@ -160,11 +173,12 @@ def _sort_geometry(table_log2: int, batch: int, max_len: int
 
 
 def _launches(files: list[str], k: int, hasher: str | None, min_len: int,
-              batch: int, max_len: int, device: torch.device
+              batch: int, max_len: int, device: torch.device | None
               ) -> Iterator[np.ndarray | tuple]:
     """The launches of counting, file by file: exact keys with the native
     parser as ragged launches of `batch` chunks, (codes, starts, lens, offs,
-    windows) on `device`; else (batch, max_len) int8 numpy batches."""
+    windows) on `device`, or (codes, table, windows) on the host when
+    device is None; else (batch, max_len) int8 numpy batches."""
     from .progress import Progress
     total_bytes = sum(os.path.getsize(f) for f in files
                       if os.path.exists(f)) or None
@@ -183,7 +197,9 @@ def _launches(files: list[str], k: int, hasher: str | None, min_len: int,
         if chunks is not None:
             yield from flush()  # keep batches file-aligned on the native path
             if hasher is None:
-                for launch in _ragged_launches(chunks, batch, k, device):
+                for launch in (_ragged_tables(chunks, batch, k)
+                               if device is None else
+                               _ragged_launches(chunks, batch, k, device)):
                     yield launch
                     progress.update(batch)
             else:
@@ -243,11 +259,13 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
     hasher None keys exactly, 'poly' or 'fnv1a' by hash.
 
     engine: 'sort' (the default; append buffer + sorted store,
-    ops/sortcount.py), 'hash' (open-addressing table, ops/hashtable.py) or
-    'sharded' (one table shard per rank of a torch.distributed group,
-    parallel/sharded_count.py); 'merge' and 'chunk', the JAX package's
-    variants of 'sort' for its TPU compiler, are the 'sort' engine here.
-    All give the same map. Ingestion uses the native (C++) parser per file
+    ops/sortcount.StreamCounter, consolidating by its 'auto' mode), 'chunk'
+    (the same with one extraction call per chunk of batches,
+    ops/sortcount.ChunkedStreamCounter), 'merge' (per-launch sorted runs +
+    bitonic-merge consolidation, ops/mergecount.py), 'hash'
+    (open-addressing table, ops/hashtable.py) or 'sharded' (one table shard
+    per rank of a torch.distributed group, parallel/sharded_count.py). All
+    give the same map. Ingestion uses the native (C++) parser per file
     when available (ragged rows for exact keys, packed batches for hashed
     ones), else the Python per-fragment readers."""
     engine = engine or os.environ.get("MC_COUNT_ENGINE", "sort")
@@ -274,24 +292,46 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
 def _count_local(files: list[str], k: int, hasher: str | None, min_len: int,
                  batch: int, max_len: int, table_log2: int, engine: str,
                  device: torch.device) -> tuple[np.ndarray, np.ndarray]:
-    """The one-device engines: 'hash', else 'sort'."""
+    """The one-device engines, with the JAX package's geometry
+    (metacherchant_tpu/counting.py:174-203): 'hash', 'merge', 'chunk', else
+    'sort'. The chunk engine takes its launches on the host and groups them
+    there; the others take each on `device`."""
     if engine == "hash":
         table = DeviceHashTable(device, capacity_log2=table_log2)
         add_codes, add_ragged = table.count_insert_codes, table.count_insert
         finish = table.items_host
     else:
-        buffer_cap, store_cap = _sort_geometry(table_log2, batch, max_len)
-        counter = StreamCounter(device, buffer_cap=buffer_cap,
-                                store_cap=store_cap)
+        if engine == "merge":
+            counter = MergeCounter(
+                device, run_cap_log2=int(np.ceil(np.log2(batch * max_len))),
+                store_cap_log2=table_log2)
+        else:
+            caps = dict(zip(("buffer_cap", "store_cap"),
+                            _sort_geometry(table_log2, batch, max_len)))
+            counter = (ChunkedStreamCounter(batch, max_len, device, **caps)
+                       if engine == "chunk" else
+                       StreamCounter(device, **caps))
         add_codes, add_ragged = counter.add_codes, counter.add_ragged
         finish = counter.finalize
+    on_host = engine == "chunk"
     for launch in _launches(files, k, hasher, min_len, batch, max_len,
-                            device):
+                            None if on_host else device):
         if isinstance(launch, np.ndarray):
-            add_codes(torch.from_numpy(launch).to(device), k, hasher)
+            add_codes(launch if on_host else
+                      torch.from_numpy(launch).to(device), k, hasher)
         else:
             add_ragged(*launch, k)
     return finish()
+
+
+def count_kmers(files: Iterable[str], k: int, hasher: str | None = None,
+                min_len: int = 0, *, device: torch.device) -> KmerMap:
+    """The tools' counting: count_kmers_host when the user sets
+    MC_HOST_COUNT (any non-empty value, read on every call, as the JAX
+    tools read it), else count_kmers_device on `device`."""
+    if os.environ.get("MC_HOST_COUNT"):
+        return count_kmers_host(files, k, hasher, min_len)
+    return count_kmers_device(files, k, hasher, min_len, device=device)
 
 
 def count_kmers_host(files: Iterable[str], k: int, hasher: str | None = None,

@@ -5,10 +5,11 @@
   parse of the classifier (no N-splitting);
 - bfs: the FIFO environment BFS, exact and hashed regimes.
 
-The sources are the JAX package's (metacherchant_tpu/native/fastio.cpp and
-bfs.cpp). They are compiled here by file path with g++ into the port's own
-build directory, never next to the sources, and loaded with the same C ABI
-as metacherchant_tpu/native/__init__.py. A missing compiler leaves the
+The sources are the port's own copies of the JAX package's
+(csrc/fastio.cpp and csrc/bfs.cpp, byte-equal to metacherchant_tpu/native/).
+They are compiled by file path with g++ into the port's own build
+directory, never next to the sources, and loaded with the same C ABI as
+metacherchant_tpu/native/__init__.py. A missing compiler leaves the
 Python readers and the Python FIFO BFS in charge, as in the JAX package.
 
 MC_NATIVE_IO=0 / MC_NATIVE_BFS=0 turn either engine off; both are read on
@@ -26,7 +27,7 @@ from pathlib import Path
 import numpy as np
 
 _REPO = Path(__file__).resolve().parents[2]
-_SRC_DIR = _REPO / "metacherchant_tpu" / "native"
+SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 #: where the port writes every library it builds (listed in .gitignore)
 BUILD_DIR = _REPO / "build" / "metacherchant_tpu_torch"
 
@@ -58,7 +59,7 @@ def _build(src: Path, name: str, extra: tuple[str, ...] = ()) -> Path | None:
 
 @functools.cache
 def _load_fastio():
-    path = _build(_SRC_DIR / "fastio.cpp", "libfastio.so", ("-lz",))
+    path = _build(SRC_DIR / "fastio.cpp", "libfastio.so", ("-lz",))
     if path is None:
         return None
     lib = ctypes.CDLL(str(path))
@@ -84,7 +85,7 @@ def _load_fastio():
 
 @functools.cache
 def _load_bfs():
-    path = _build(_SRC_DIR / "bfs.cpp", "libbfs.so")
+    path = _build(SRC_DIR / "bfs.cpp", "libbfs.so")
     if path is None:
         return None
     lib = ctypes.CDLL(str(path))

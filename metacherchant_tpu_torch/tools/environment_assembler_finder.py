@@ -11,7 +11,8 @@ upstream bug; we pass the .fasta that actually exists and note the
 divergence); assembler failures are logged, not fatal, and stage 3 then fails
 on the missing contigs like the reference would. Carried over from
 metacherchant_tpu/tools/environment_assembler_finder.py; both stages count
-with count_kmers_device on the device of device.py.
+with counting.count_kmers (the device of device.py, or the host under
+MC_HOST_COUNT).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import subprocess
 
 from ..tool import Tool, Parameter, ExecutionFailedException, tool_device
 from ..io.readers import read_rich_fasta
-from ..counting import count_kmers_device
+from ..counting import count_kmers
 from ..algo.calculator import run_one_sequence
 from ..algo.filter import SubgraphChecker, filter_reads_file
 
@@ -106,7 +107,7 @@ class EnvironmentAssemblerFinder(Tool):
         for f in reads_files:
             if not os.path.exists(f):
                 raise ExecutionFailedException(f"Could not load reads from {f}")
-        kmap = count_kmers_device(reads_files, k, hasher, device=dev)
+        kmap = count_kmers(reads_files, k, hasher, device=dev)
         self.info("Hashtable size: %d kmers", len(kmap))
         records = read_rich_fasta(self.seqs_file.get(self))
         if not records:

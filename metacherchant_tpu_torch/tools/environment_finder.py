@@ -12,7 +12,7 @@ import os
 
 from ..tool import Tool, Parameter, ExecutionFailedException, tool_device
 from ..io.readers import read_rich_fasta
-from ..counting import count_kmers_device
+from ..counting import count_kmers
 from ..algo.calculator import run_one_sequence
 
 
@@ -89,8 +89,8 @@ class EnvironmentFinderMain(Tool):
         for f in self.reads_files.get(self) or []:
             if not os.path.exists(f):
                 raise ExecutionFailedException(f"Could not load reads from {f}")
-        kmap = count_kmers_device(self.reads_files.get(self) or [],
-                                  self.k.get(self), hasher, device=dev)
+        kmap = count_kmers(self.reads_files.get(self) or [],
+                           self.k.get(self), hasher, device=dev)
         self.info("Hashtable size: %d kmers", len(kmap))
         try:
             records = read_rich_fasta(self.seqs_file.get(self))

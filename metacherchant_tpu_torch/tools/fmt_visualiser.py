@@ -12,7 +12,7 @@ from __future__ import annotations
 import os
 
 from ..tool import Tool, Parameter, ExecutionFailedException, tool_device
-from ..counting import count_kmers_device, load_present_kmer_strings
+from ..counting import count_kmers, load_present_kmer_strings
 from ..dna import codes_to_kmers_np
 from ..algo.environment import ascii_min_orient
 from ..algo.fmt import build_colored_picture, two_bin_color, four_bin_color
@@ -41,8 +41,8 @@ class FMTTool(Tool):
         return files
 
     def _count(self, files, hasher):
-        return count_kmers_device(files, self.k.get(self), hasher,
-                                  device=tool_device())
+        return count_kmers(files, self.k.get(self), hasher,
+                           device=tool_device())
 
 
 class FMTVisualiser(FMTTool):

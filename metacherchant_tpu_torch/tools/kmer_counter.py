@@ -12,7 +12,7 @@ import os
 import time
 
 from ..tool import Tool, Parameter, ExecutionFailedException, tool_device
-from ..counting import count_kmers_device
+from ..counting import count_kmers
 from ..io.writers import write_kmers_bin
 
 
@@ -54,7 +54,7 @@ class KmersCounter(Tool):
         dev = tool_device()
         t0 = time.time()
         # minSeqLen = k (KmersCounter passes k, src/tools/KmersCounter.java:57-68)
-        kmap = count_kmers_device(files, k, hasher, min_len=k, device=dev)
+        kmap = count_kmers(files, k, hasher, min_len=k, device=dev)
         self.info("Reads loaded in %.1f s, %d distinct k-mers", time.time() - t0, len(kmap))
         out = self.output_dir.get(self)
         os.makedirs(out, exist_ok=True)

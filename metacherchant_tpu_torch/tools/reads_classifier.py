@@ -15,7 +15,7 @@ import numpy as np
 
 from ..tool import Tool, Parameter, ExecutionFailedException, tool_device
 from ..kmer_map import KmerMap
-from ..counting import count_kmers_device
+from ..counting import count_kmers
 from ..io.writers import read_kmers_bin, FastqWriter
 from ..algo.classify import (device_classify, find_reads, FoundStats,
                              iter_read_batch_pairs)
@@ -68,7 +68,7 @@ def load_classifier_graph(tool: Tool, input_files: list[str], k: int,
         for f in input_files:
             if not os.path.exists(f):
                 raise ExecutionFailedException(f"Could not load reads from {f}")
-        kmap = count_kmers_device(input_files, k, hasher, device=tool_device())
+        kmap = count_kmers(input_files, k, hasher, device=tool_device())
     tool.info("Hashtable size: %d kmers", len(kmap))
     return kmap, hasher
 

@@ -14,7 +14,7 @@ import os
 import numpy as np
 
 from ..tool import Tool, Parameter, ExecutionFailedException, tool_device
-from ..counting import count_kmers_device
+from ..counting import count_kmers
 from ..io.readers import iter_dnaq
 from ..algo.classify import rolling_keys_np
 
@@ -55,7 +55,7 @@ class SequenceCoverage(Tool):
         for f in files:
             if not os.path.exists(f):
                 raise ExecutionFailedException(f"Could not load reads from {f}")
-        kmap = count_kmers_device(files, k, hasher, device=tool_device())
+        kmap = count_kmers(files, k, hasher, device=tool_device())
         self.info("Hashtable size: %d kmers", len(kmap))
         return kmap
 

@@ -14,6 +14,7 @@ with numpy; the tolerance is zero.
 import os
 import re
 import sys
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -205,9 +206,17 @@ def _outputs(root: str) -> tuple[dict[str, bytes], list[str], dict]:
     return _tree(os.path.join(root, "out")), names, kept
 
 
+def jax_host_main(argv: list[str]) -> int:
+    """The JAX package's CLI with MC_HOST_COUNT set for this run alone: it
+    counts on the host, sparing its compile time on every input shape (the
+    same maps), while the port's runs count on the port's device path."""
+    with mock.patch.dict(os.environ, MC_HOST_COUNT="1"):
+        return jax_main(argv)
+
+
 def _both(tmp_path, *extra: str, **kw) -> dict:
     got = {}
-    for name, main in (("jax", jax_main), ("port", port_main)):
+    for name, main in (("jax", jax_host_main), ("port", port_main)):
         root = str(tmp_path / name)
         assert main(_asm_args(kw["d"], root, kw.get("assembler", "spades"),
                               kw.get("seq", "gene.fasta")) + list(extra)) == 0
@@ -218,10 +227,11 @@ def _both(tmp_path, *extra: str, **kw) -> dict:
 
 @pytest.fixture
 def cpu(monkeypatch):
-    """Both packages on the CPU; the JAX package counts on the host
-    (MC_HOST_COUNT, which the port does not read): the same maps."""
+    """Both packages on the CPU, MC_HOST_COUNT unset: jax_host_main sets it
+    for the JAX package's runs alone, so that the port counts on its device
+    path."""
     monkeypatch.setenv("MC_PLATFORM", "cpu")
-    monkeypatch.setenv("MC_HOST_COUNT", "1")
+    monkeypatch.delenv("MC_HOST_COUNT", raising=False)
 
 
 @pytest.mark.parametrize("assembler", ["spades", "megahit"])
@@ -280,7 +290,7 @@ def test_multi_record_aborts_like_jax(asm, tmp_path, cpu):
 def test_failed_assembler_fails_stage_three_like_jax(asm, tmp_path, cpu):
     """An assembler path without the assembler: stage 2 logs and goes on,
     stage 3 finds no contigs and fails the run."""
-    for name, main in (("jax", jax_main), ("port", port_main)):
+    for name, main in (("jax", jax_host_main), ("port", port_main)):
         root = str(tmp_path / name)
         args = _asm_args(asm, root, "megahit")
         args[args.index("--assemblerpath") + 1] = str(tmp_path)

@@ -104,7 +104,8 @@ def test_unported_engines_raise(reads_fastq, engine, monkeypatch,
                                 no_group_left):
     """Every engine the port once refused now counts, through
     MC_COUNT_ENGINE: the JAX package's map under the same engine, key for
-    key ('merge' and 'chunk' are the sort engine here; 'sharded' forms a
+    key ('merge' is ops/mergecount.MergeCounter and 'chunk'
+    ops/sortcount.ChunkedStreamCounter, as in JAX; 'sharded' forms a
     process group of world size 1)."""
     monkeypatch.setenv("MC_COUNT_ENGINE", engine)
     got = count_kmers_device([reads_fastq], 21, device=CPU, **GEOM)

@@ -1,11 +1,13 @@
 """Tests of the port that need a CUDA GPU: the extraction kernel against its
 plain torch version on the card, the hashed keys, the map lookup, the device
-contraction, the hash table and the device BFS engines on the card against
-the CPU, the multiword visited set's slot election under contention, the
-device classify coverage against the host one (reads-classifier's and
-triple-reads-classifier's), the sharded engine and BFS in an NCCL group of
-world size 1 against the sort engine and bfs_layered, and the main path on
-the card against the host oracle and against the same run on the CPU.
+contraction, the hash table, the device BFS engines, the consolidation
+modes and the bitonic/merge-split units on the card against the CPU, the
+merge and chunk counting engines against the sort engine, the multiword
+visited set's slot election under contention, the device classify coverage
+against the host one (reads-classifier's and triple-reads-classifier's),
+the sharded engine and BFS in an NCCL group of world size 1 against the
+sort engine and bfs_layered, and the main path on the card against the
+host oracle and against the same run on the CPU.
 
 They skip where torch sees no CUDA device. This file imports no JAX, so it
 also runs on a machine without it (tests/conftest.py imports JAX, hence
@@ -429,6 +431,85 @@ def test_hash_engine_on_card_matches_sort(cuda, k, hasher, tmp_path,
     assert (launches[1] > 0) == (hasher is None)
     assert np.array_equal(got.keys, want.keys)
     assert np.array_equal(got.counts, want.counts)
+
+
+@pytest.mark.parametrize("k,hasher", [(31, None), (55, "poly")])
+def test_merge_and_chunk_engines_on_card_match_sort(cuda, k, hasher,
+                                                    tmp_path):
+    """MC_COUNT_ENGINE=merge and chunk on the card: the sort engine's map.
+    Exact keys go through the kernel's ragged entry once per run (merge,
+    as often as sort) and once per buffer fill (chunk, fewer)."""
+    path = str(tmp_path / "reads.fastq")
+    _write_fastq(path, 11)
+    geom = dict(batch=256, max_len=128, table_log2=10)
+    maps, launches = {}, {}
+    for engine in ("sort", "merge", "chunk"):
+        before = extract_cuda.LAUNCHES
+        maps[engine] = count_kmers_device([path], k, hasher, device=cuda,
+                                          engine=engine, **geom)
+        launches[engine] = extract_cuda.LAUNCHES - before
+    assert launches["merge"] == launches["sort"]
+    assert (launches["sort"] > 0) == (hasher is None)
+    assert launches["chunk"] < launches["sort"] or hasher is not None
+    for engine in ("merge", "chunk"):
+        assert np.array_equal(maps[engine].keys, maps["sort"].keys)
+        assert np.array_equal(maps[engine].counts, maps["sort"].counts)
+
+
+@pytest.mark.parametrize("compaction", ["sort2", "shift"])
+@pytest.mark.parametrize("mode", ["auto", "sort2", "merge"])
+def test_stream_counter_modes_on_card_match_cpu(cuda, mode, compaction,
+                                                monkeypatch):
+    """StreamCounter in each consolidation mode on the card: the CPU's
+    store after every batch (store growth included)."""
+    monkeypatch.setenv("MC_SORT_COMPACTION", compaction)
+    from metacherchant_tpu_torch.ops.sortcount import StreamCounter
+    caps = dict(buffer_cap=3 << 14, store_cap=1 << 14, mode=mode)
+    counters = {d: StreamCounter(d, **caps)
+                for d in (cuda, torch.device("cpu"))}
+    for seed in range(48):  # batches of 8,320 keys, below every buffer size
+        codes = torch.from_numpy(_codes(seed, 64, 150))
+        for d, sc in counters.items():
+            sc.add_codes(codes.to(d), 21)
+        gpu, cpu = counters.values()
+        assert torch.equal(gpu.store_keys.cpu(), cpu.store_keys)
+        assert torch.equal(gpu.store_cnts.cpu(), cpu.store_cnts)
+    got, want = (sc.finalize() for sc in counters.values())
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert gpu.store_cap > caps["store_cap"]
+
+
+def test_bitonic_and_merge_split_on_card_match_cpu(cuda):
+    """The bitonic primitives and both full-length consolidations on the
+    card: the CPU's lanes, bit for bit, at 2^18 and 3·2^17 lanes."""
+    from metacherchant_tpu_torch.ops import bitonic, sortcount
+    rng = np.random.default_rng(12)
+    store_n, buf_n = 1 << 17, 1 << 18
+    keys = np.unique(rng.integers(0, 1 << 40, store_n))[:store_n - 100]
+    store = np.full(store_n, SENTINEL, np.int64)
+    store[:keys.size] = keys
+    cnts = np.where(store == SENTINEL, 0,
+                    rng.integers(1, 50, store_n)).astype(np.int32)
+    buf = np.concatenate([rng.choice(keys, buf_n // 2),
+                          rng.integers(0, 1 << 40, buf_n // 2)])
+    run = np.sort(buf[:buf_n // 2])
+    cases = {
+        "bitonic_merge": (bitonic.bitonic_merge, (store, run, cnts,
+                                                  np.ones_like(cnts))),
+        "merge_rle_compact": (bitonic.merge_rle_compact, (store, cnts, run)),
+        "merge_split": (sortcount._consolidate_merge_split,
+                        (store, cnts, buf, buf_n - 5)),
+        "full_split": (sortcount._consolidate_full_split,
+                       (store[:buf_n // 2], cnts[:buf_n // 2], buf, 7)),
+    }
+    for name, (fn, args) in cases.items():
+        outs = {}
+        for d in (cuda, torch.device("cpu")):
+            dev_args = [torch.from_numpy(a).to(d) if isinstance(a, np.ndarray)
+                        else a for a in args]
+            outs[d.type] = [t.cpu() for t in fn(*dev_args)]
+        for g, c in zip(outs["cuda"], outs["cpu"], strict=True):
+            assert torch.equal(g, c), name
 
 
 @pytest.fixture

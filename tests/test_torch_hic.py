@@ -7,18 +7,19 @@ are compared byte for byte (the tolerance is zero).
 """
 import os
 import re
+from unittest import mock
 
 import numpy as np
 import pytest
 
 from metacherchant_tpu.hic import pipeline as JP
-from metacherchant_tpu.runner import main as jax_main
 from metacherchant_tpu_torch.dna import reverse_complement
 from metacherchant_tpu_torch.hic import pipeline as TP
 from metacherchant_tpu_torch.runner import main as port_main
 from metacherchant_tpu_torch.tool import ExecutionFailedException
 
 from test_hic_pipeline import BWA_STUB
+from test_torch_assembler import jax_host_main
 
 
 def _tree(root) -> dict[str, bytes]:
@@ -44,10 +45,11 @@ def _masked(root: str) -> dict[str, bytes]:
 
 @pytest.fixture
 def cpu(monkeypatch):
-    """Both packages on the CPU; the JAX package counts on the host
-    (MC_HOST_COUNT, which the port does not read): the same maps."""
+    """Both packages on the CPU, MC_HOST_COUNT unset: jax_host_main sets it
+    for the JAX package's runs alone, so that the port counts on its device
+    path."""
     monkeypatch.setenv("MC_PLATFORM", "cpu")
-    monkeypatch.setenv("MC_HOST_COUNT", "1")
+    monkeypatch.delenv("MC_HOST_COUNT", raising=False)
 
 
 def _sam_line(flag, rname, rnext, seq):
@@ -131,9 +133,13 @@ def hic_data(tmp_path_factory):
 
 
 def _pipeline(mod, d: dict, wd: str, **kw) -> None:
-    mod.run_hic_pipeline([d["wgs.fastq"]], d["gene.fasta"], wd,
-                         d["hic_1.fastq"], d["hic_2.fastq"], k=21,
-                         coverage=2, max_radius=1000, **kw)
+    """One package's pipeline; the JAX package's counts on the host (as
+    jax_host_main), the port's on its device path."""
+    with mock.patch.dict(os.environ,
+                         {"MC_HOST_COUNT": "1"} if mod is JP else {}):
+        mod.run_hic_pipeline([d["wgs.fastq"]], d["gene.fasta"], wd,
+                             d["hic_1.fastq"], d["hic_2.fastq"], k=21,
+                             coverage=2, max_radius=1000, **kw)
 
 
 def test_run_hic_pipeline_matches_jax(hic_data, stub_tools, tmp_path, cpu):
@@ -154,7 +160,7 @@ def test_run_hic_pipeline_matches_jax(hic_data, stub_tools, tmp_path, cpu):
 def test_cli_matches_jax(first_pass_only, hic_data, stub_tools, tmp_path,
                          cpu):
     extra = ["--first-pass-only", "true"] if first_pass_only else []
-    for name, main in (("jax", jax_main), ("port", port_main)):
+    for name, main in (("jax", jax_host_main), ("port", port_main)):
         assert main(["-t", "hic-pipeline", "-k", "21",
                      "-i", hic_data["wgs.fastq"],
                      "--seq", hic_data["gene.fasta"],

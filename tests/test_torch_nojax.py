@@ -1,10 +1,15 @@
-"""The port runs where JAX is not installed.
+"""The port runs where JAX is not installed, and stands on its own files.
 
 A subprocess blocks `jax` and `metacherchant_tpu` in sys.modules, imports
 every module of metacherchant_tpu_torch and chip_smoke.py, and runs the
-port's CLI on the CPU: one or more command lines, separated by "::".
+port's CLI on the CPU: one or more command lines, separated by "::". An
+audit hook fails it if the run opens, builds, loads or lists a path under
+metacherchant_tpu/. The port's native sources are its own copies, built
+from its own package, and byte-equal to the JAX package's frozen ones.
 """
+import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -12,9 +17,30 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "metacherchant_tpu_torch"
+JAX_PKG = REPO / "metacherchant_tpu"
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
+JAX_DIR = os.path.join(os.getcwd(), "metacherchant_tpu") + os.sep
+touched = []
+
+
+def _paths(args):
+    for a in args:
+        if isinstance(a, (list, tuple)):
+            yield from _paths(a)
+        elif isinstance(a, (str, bytes, os.PathLike)):
+            yield os.path.abspath(os.fsdecode(a))
+
+
+def audit(event, args):
+    if event in ("open", "subprocess.Popen", "os.exec", "os.posix_spawn",
+                 "ctypes.dlopen", "os.listdir", "os.scandir"):
+        touched.extend(p for p in _paths(args) if p.startswith(JAX_DIR))
+
+
+sys.addaudithook(audit)
 sys.modules["jax"] = None
 sys.modules["metacherchant_tpu"] = None
 import metacherchant_tpu_torch
@@ -30,6 +56,7 @@ while argv and not rc:
 loaded = [n for n, m in sys.modules.items() if m is not None
           and (n.split(".")[0] in ("jax", "jaxlib", "metacherchant_tpu"))]
 assert not loaded, loaded
+assert not touched, touched
 sys.exit(rc)
 """
 
@@ -211,3 +238,62 @@ def test_sharded_engine_runs_without_jax(tmp_path):
               str(tmp_path / engine)], env={"MC_COUNT_ENGINE": engine})
     got = (out / "sharded" / "geneA" / "graph.txt").read_bytes()
     assert got and got == (out / "merge" / "geneA" / "graph.txt").read_bytes()
+
+
+def _code_strings(path: Path):
+    """(line, value) of every string constant in a Python file that is not
+    a docstring."""
+    tree = ast.parse(path.read_text())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.lineno, node.value
+
+
+def test_no_code_names_a_path_into_the_jax_package():
+    """No string in the port's code or chip_smoke.py (docstrings aside)
+    names metacherchant_tpu as a path component, so none builds or reads a
+    file there. The one form allowed is a file:line reference to the TPU
+    kernel a kernel replaces, which is printed, never opened."""
+    names_jax = re.compile(r"(^|[^\w])metacherchant_tpu(?!_torch)($|[^\w])")
+    reference = re.compile(r"^metacherchant_tpu/[\w/]+\.py:\d+$")
+    found = [f"{path.relative_to(REPO)}:{line}: {value!r}"
+             for path in [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py"]
+             for line, value in _code_strings(path)
+             if names_jax.search(value) and not reference.match(value)]
+    assert not found, found
+
+
+def test_native_sources_are_the_ports_own(tmp_path, monkeypatch):
+    """The host libraries build from csrc/ in the port's package: every g++
+    command names sources there only, and each copy is byte-equal to the
+    JAX package's source (frozen: drift fails here)."""
+    from metacherchant_tpu_torch import native
+    from metacherchant_tpu_torch.ops import extract_cuda
+    for name in ("fastio.cpp", "bfs.cpp"):
+        assert (native.SRC_DIR / name).read_bytes() == \
+            (JAX_PKG / "native" / name).read_bytes(), name
+    assert extract_cuda.SOURCE.is_relative_to(PORT)
+    commands = []
+    run = subprocess.run
+
+    def spy(cmd, **kwargs):
+        commands.append(cmd)
+        return run(cmd, **kwargs)
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native.subprocess, "run", spy)
+    libs = [native._load_fastio.__wrapped__(), native._load_bfs.__wrapped__()]
+    assert len(commands) == 2
+    for cmd in commands:
+        sources = [Path(a) for a in cmd if a.endswith((".cpp", ".cu"))]
+        assert len(sources) == 1 and sources[0].parent == native.SRC_DIR
+        assert sources[0].resolve().is_relative_to(PORT)
+    if all(lib is not None for lib in libs):  # g++ present: both built here
+        assert sorted(p.name for p in tmp_path.glob("*.so")) == \
+            ["libbfs.so", "libfastio.so"]

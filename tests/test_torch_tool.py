@@ -19,7 +19,8 @@ from metacherchant_tpu_torch.runner import main as port_main
 from metacherchant_tpu_torch.tool import (ExecutionFailedException, Parameter,
                                           Tool)
 
-from test_torch_assembler import SPADES_STUB
+from metacherchant_tpu_torch import counting
+from test_torch_assembler import SPADES_STUB, jax_host_main
 
 
 class OutTool(Tool):
@@ -248,17 +249,17 @@ def _workdir(root: str) -> tuple[list[str], dict[str, bytes]]:
 
 @pytest.fixture
 def cpu(monkeypatch):
-    """Both packages on the CPU; the JAX package counts on the host
-    (MC_HOST_COUNT, which the port does not read): the same maps, without
-    its compile time on every input shape."""
+    """Both packages on the CPU, MC_HOST_COUNT unset: jax_host_main sets it
+    for the JAX package's runs alone, so that the port counts on its device
+    path."""
     monkeypatch.setenv("MC_PLATFORM", "cpu")
-    monkeypatch.setenv("MC_HOST_COUNT", "1")
+    monkeypatch.delenv("MC_HOST_COUNT", raising=False)
 
 
 @pytest.mark.parametrize("tool", sorted(_TOOL_MODULES))
 def test_workdir_matches_jax(tool, inputs, tmp_path, cpu):
     got = {}
-    for name, main in (("jax", jax_main), ("port", port_main)):
+    for name, main in (("jax", jax_host_main), ("port", port_main)):
         root = str(tmp_path / name)
         args = _tool_args(tool, inputs, os.path.join(root, "out"))
         assert main(["-t", tool, *args, "--work-dir",
@@ -277,7 +278,7 @@ def test_workdir_matches_jax_under_continue(inputs, tmp_path, cpu):
     """A second run with --continue skips and leaves the same workDir in
     both packages."""
     got = {}
-    for name, main in (("jax", jax_main), ("port", port_main)):
+    for name, main in (("jax", jax_host_main), ("port", port_main)):
         root = str(tmp_path / name)
         args = ["-t", "kmer-counter",
                 *_tool_args("kmer-counter", inputs,
@@ -289,3 +290,43 @@ def test_workdir_matches_jax_under_continue(inputs, tmp_path, cpu):
         got[name] = _workdir(root)
     assert got["port"] == got["jax"]
     assert os.path.join("wd", "out.properties") not in got["port"][1]
+
+
+#: the JAX tools that read MC_HOST_COUNT (metacherchant_tpu/tools/)
+HOST_COUNT_TOOLS = ("environment-finder", "kmer-counter", "reads-classifier",
+                    "fmt-visualiser", "fmt-visualizer", "recipient-visualiser",
+                    "environment-assembler-finder", "seq-cov")
+
+
+def _out_tree(root: str) -> dict[str, bytes]:
+    files = {}
+    for dirpath, _, names in os.walk(os.path.join(root, "out")):
+        for name in names:
+            p = os.path.join(dirpath, name)
+            with open(p, "rb") as fh:
+                files[os.path.relpath(p, root)] = \
+                    fh.read().replace(root.encode(), b"<root>")
+    return files
+
+
+@pytest.mark.parametrize("tool", HOST_COUNT_TOOLS)
+def test_host_count_matches_jax(tool, inputs, tmp_path, monkeypatch):
+    """MC_HOST_COUNT=1 in both packages: the port counts with
+    count_kmers_host, never count_kmers_device, and writes JAX's files."""
+    monkeypatch.setenv("MC_PLATFORM", "cpu")
+    monkeypatch.setenv("MC_HOST_COUNT", "1")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("count_kmers_device called under MC_HOST_COUNT")
+
+    got = {}
+    for name, main in (("jax", jax_main), ("port", port_main)):
+        root = str(tmp_path / name)
+        with monkeypatch.context() as m:
+            if name == "port":
+                m.setattr(counting, "count_kmers_device", refuse)
+            assert main(["-t", tool, *_tool_args(tool, inputs,
+                                                 os.path.join(root, "out")),
+                         "--work-dir", os.path.join(root, "wd")]) == 0, name
+        got[name] = _out_tree(root)
+    assert got["port"] and got["port"] == got["jax"]
