@@ -7,8 +7,8 @@ hashed regimes, kmer-counter -> reads-classifier, triple-reads-classifier,
 seq-cov, the three FMT tools, environment-assembler-finder, hic-pipeline,
 environment-finder-multi, the device contraction, the device BFS engines,
 the `sort` (each consolidation route), `merge`, `chunk`, `hash` and
-`sharded` counting engines, the sharded BFS) at a real data size and checks
-them:
+`sharded` counting engines, the sharded BFS, the scalar sliding-poly FIFO)
+at a real data size and checks them:
 
   1. device         the card's name and power limit;
   2. build          the CUDA extraction kernel (nvcc, sm_90a) and the native
@@ -116,7 +116,14 @@ them:
                     engine's largest launch against the plain version with
                     its share of the byte bound; environment-finder -k 31
                     under MC_COUNT_ENGINE=merge and chunk against phase 5's
-                    files.
+                    files;
+ 20. scalar-poly    build_environment_hashed for phase 8's three genes at
+                    k=55 (poly) on the map of phase 5's reads, with the
+                    native BFS off (MC_NATIVE_BFS=0), so that the scalar
+                    sliding-poly FIFO walks: each gene's normalized
+                    environment against phase 8's graph.txt (the native
+                    FIFO's), with the key dict's build seconds, seconds and
+                    visited states per direction.
 
 Every phase prints its own lines and its seconds; any failure exits
 non-zero. The last two lines are the kernels' JSON record and the device
@@ -2313,6 +2320,56 @@ def phase_count_engines(fq: str, genes: str, tmp: str, card: str) -> dict:
     return {"launches": paths, "chunk": chunk_rec, "consolidation": cons}
 
 
+def phase_scalar_poly(fq: str, genes: str, tmp: str, card: str) -> None:
+    """Phase 8's environments again, walked by the scalar sliding-poly FIFO
+    (the host engine of poly-hashed BFS where the native library is off)."""
+    from metacherchant_tpu_torch.algo.environment_hashed import (
+        build_environment_hashed)
+    from metacherchant_tpu_torch.counting import count_kmers_device
+    from metacherchant_tpu_torch.io.readers import read_rich_fasta
+    from metacherchant_tpu_torch.io.writers import load_graph_txt
+    t0 = time.perf_counter()
+    kmap = count_kmers_device([fq], HASH_K, "poly",
+                              device=torch.device("cuda"))
+    say("scalar-poly", f"k={HASH_K} poly map of phase 5's reads: {len(kmap)} "
+                       f"distinct keys, counted in "
+                       f"{time.perf_counter() - t0:.3f} s ({card})")
+    stamps = _Stamps()
+    log = logging.getLogger("metacherchant")
+    level, native_bfs = log.level, os.environ.get("MC_NATIVE_BFS")
+    log.addHandler(stamps)
+    log.setLevel(logging.DEBUG)
+    os.environ["MC_NATIVE_BFS"] = "0"
+    try:
+        for rec in read_rich_fasta(genes):
+            t0 = time.perf_counter()
+            env = build_environment_hashed(
+                [rec.seq], HASH_K, kmap, 5, "poly", both_directions=False,
+                max_radius=1000, max_kmers=None, trim=False)
+            seconds = time.perf_counter() - t0
+            want = load_graph_txt(os.path.join(tmp, "out55", rec.comment,
+                                               "graph.txt"))
+            check(not env.fail and env.as_dict() == want,
+                  f"{rec.comment}: the scalar sliding-poly FIFO's "
+                  f"environment differs from the native FIFO's")
+            say("scalar-poly", f"{rec.comment}: {len(want)} normalized "
+                               f"k-mers equal to phase 8's graph.txt; "
+                               f"{seconds:.3f} s ({card})")
+    finally:
+        log.removeHandler(stamps)
+        log.setLevel(level)
+        if native_bfs is None:
+            del os.environ["MC_NATIVE_BFS"]
+        else:
+            os.environ["MC_NATIVE_BFS"] = native_bfs
+    lines = [m for _, m, _ in stamps.records if m.startswith("scalar")]
+    check(len(lines) == 7 and "key dict" in lines[0],
+          f"expected the key dict's line and six scalar sliding-poly FIFO "
+          f"directions, got {lines}")
+    for m in lines:
+        say("scalar-poly", f"  {m}")
+
+
 def timed(name: str, card: str, fn, *args):
     t0 = time.perf_counter()
     result = fn(*args)
@@ -2376,6 +2433,7 @@ def main() -> int:
                         tmp, smi)
         engines = timed("count-engines", smi, phase_count_engines, fq,
                         genes, tmp, smi)
+        timed("scalar-poly", smi, phase_scalar_poly, fq, genes, tmp, smi)
     print(json.dumps({"kernels": [{
         "name": "extract_append",
         "route": "cuda",

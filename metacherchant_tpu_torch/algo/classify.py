@@ -319,6 +319,14 @@ def find_reads(batch: ReadBatch, kmap: KmerMap, k: int, hasher: str | None,
     return found
 
 
+def classify_pairs(found_1: np.ndarray, found_2: np.ndarray,
+                   len_2: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Single-end convention: empty mate -> found_2 = !found_1
+    (PairFinder.java:42-44)."""
+    found_2 = np.where(len_2 == 0, ~found_1, found_2)
+    return found_1, found_2
+
+
 @dataclass
 class FoundStats:
     """src/tools/ReadsClassifier.java FoundStats:225-268."""

@@ -4,17 +4,19 @@ Carried over from metacherchant_tpu/algo/environment_hashed.py. The
 reference's BFS always walks literal k-mer strings; in the hashed regime only
 the MAP KEY changes (64-bit canonical hash instead of the 2-bit code,
 src/algo/OneSequenceCalculator.java:89-96 getKmerKey). Arbitrary k cannot pack
-into one int64, so states here are (k,) nucleotide-code rows. Two host
+into one int64, so states here are (k,) nucleotide-code rows. Three host
 engines, each in the reference's exact FIFO order -- (parent admission order,
 neighbor order) -- so order-dependent semantics (MAX_KMERS at admission time,
 lastKmers marking, TerminationMode.java:31-47) match the Java run:
 
 - the native C++ FIFO (native/bfs.cpp, both hashes), the default;
-- where the native library is not built (no g++, or MC_NATIVE_BFS=0), a
-  layer-synchronous FIFO that hashes each layer's candidates as one batch
-  (ops.kmers.hash_codes_np, exact Java wrap) and admits them sequentially,
-  for both hashes. The JAX package also has a scalar sliding-poly FIFO for
-  that case; it gives the same environments and is not carried over.
+- where the native library is not built (no g++, or MC_NATIVE_BFS=0), for
+  the poly hash a scalar FIFO that slides each state's (fw, rc) hash pair
+  in O(1) per neighbor (_bfs_scalar_poly);
+- in that case for FNV-1a, which has no sliding form, a layer-synchronous
+  FIFO that hashes each layer's candidates as one batch
+  (ops.kmers.hash_codes_np, exact Java wrap) and admits them sequentially
+  (_bfs_layer_fifo).
 
 getKmerKey(s) = hasher.hash(normalizeDna(s)) == hasher.hash(s): both poly and
 FNV-1a hashes are orientation-invariant (min of fw/rc), so normalization
@@ -33,7 +35,7 @@ import numpy as np
 
 from ..kmer_map import KmerMap
 from ..dna import CODE_TO_CHAR, encode
-from ..ops.kmers import hash_codes_np
+from ..ops.kmers import hash_codes_np, hash_codes_pair_np
 from .environment import Environment, route_device_bfs
 
 logger = logging.getLogger("metacherchant")
@@ -131,6 +133,7 @@ def build_environment_hashed(sequences: list[str], k: int, kmap: KmerMap,
         t0 = time.perf_counter()
         n_before = len(union)
         if use_device:
+            engine = "multiword device"
             from ..device import device
             from ..ops.bfs_hashed import run_device_bfs_hashed
             rows = run_device_bfs_hashed(np.stack(seed_rows), kmap, k,
@@ -140,6 +143,7 @@ def build_environment_hashed(sequences: list[str], k: int, kmap: KmerMap,
         elif _native_bfs_available():
             # C++ FIFO engine (native/bfs.cpp): exact admission semantics for
             # BOTH hash regimes (incl. FNV-1a, which has no sliding form)
+            engine = "native FIFO"
             from .. import native
             vis_rows, last_rows = native.bfs_hashed(
                 kmap.keys, kmap.counts, np.stack(seed_rows), k, min_occ,
@@ -149,13 +153,21 @@ def build_environment_hashed(sequences: list[str], k: int, kmap: KmerMap,
                 keep = _trim(rows, {r.tobytes() for r in last_rows}, direction)
                 rows = {b: rows[b] for b in keep}
             union.update(rows)
+        elif hasher == "poly":
+            # scalar FIFO with O(1) sliding (fw, rc) hash updates -- 5 is odd,
+            # hence invertible mod 2^64, so both left and right extensions
+            # slide
+            engine = "scalar sliding-poly FIFO"
+            union.update(_bfs_scalar_poly(seed_rows, kmap, k, min_occ,
+                                          direction, max_radius, max_kmers,
+                                          trim))
         else:
-            visited = _bfs_layer_fifo(seed_rows, kmap, k, min_occ, hasher,
-                                      direction, max_radius, max_kmers, trim)
-            union.update(visited)
+            engine = "layer FIFO"
+            union.update(_bfs_layer_fifo(seed_rows, kmap, k, min_occ, hasher,
+                                         direction, max_radius, max_kmers,
+                                         trim))
         logger.debug("%s BFS, direction %d: union of %d states after %d, "
-                     "%.3f s", "multiword device" if use_device else
-                     "host FIFO", direction, len(union), n_before,
+                     "%.3f s", engine, direction, len(union), n_before,
                      time.perf_counter() - t0)
     if fail:
         return Environment(k, np.empty(0, np.int64), np.empty(0, np.int32), fail=True)
@@ -164,6 +176,97 @@ def build_environment_hashed(sequences: list[str], k: int, kmap: KmerMap,
     env = _HashedEnvironment(k, states, kmap, hasher)
     env.extend_count = _extend_count(states, env._norm_set, kmap, hasher, min_occ)
     return env
+
+
+def _bfs_scalar_poly(seed_rows: list[np.ndarray], kmap: KmerMap, k: int,
+                     min_occ: int, direction: int, max_radius: int | None,
+                     max_kmers: int | None, trim: bool
+                     ) -> dict[bytes, np.ndarray]:
+    """One runBfs pass, scalar FIFO, polynomial hash regime.
+
+    Queue entries carry (state bytes, fw, rc) where fw/rc are the unsigned
+    bit patterns of the Java hashes. With p = 5^k, q = 5^(k-1) (mod 2^64):
+        fw(s) = p + sum_t  s[t]      * 5^(k-1-t)
+        rc(s) = p + sum_u (3^s[u])   * 5^u
+    Right extension s[1:]+n:  fw' = 5*fw - 4p - s[0]*p + n
+                              rc' = (rc - p - (3^s[0]))*inv5 + (3^n)*q + p
+    Left extension  n+s[:-1]: fw' = (fw - p - s[-1])*inv5 + n*q + p
+                              rc' = (rc - p - (3^s[-1])*q)*5 + p + (3^n)
+    Key = signed min(fw', rc'), probed in a Python dict of the whole map,
+    built once and cached on the map as kmap._hash_dict. Duplicate seeds are
+    queued as the reference queues them; admission (MAX_KMERS at admission
+    time, then the radius) and lastKmers marking as in _bfs_layer_fifo, in
+    the same FIFO order.
+    """
+    MASK = (1 << 64) - 1
+    inv5 = pow(5, -1, 1 << 64)
+    p = pow(5, k, 1 << 64)
+    q = pow(5, k - 1, 1 << 64)
+    counts = getattr(kmap, "_hash_dict", None)
+    if counts is None:
+        t0 = time.perf_counter()
+        counts = dict(zip(kmap.keys.tolist(), kmap.counts.tolist()))
+        kmap._hash_dict = counts
+        logger.debug("scalar sliding-poly FIFO: key dict of %d map entries "
+                     "built in %.3f s", len(counts), time.perf_counter() - t0)
+    get = counts.get
+    TWO63, TWO64 = 1 << 63, 1 << 64
+
+    dist: dict[bytes, int] = {}
+    queue: list[tuple[bytes, int, int]] = []
+    if seed_rows:
+        fw_a, rc_a = hash_codes_pair_np(np.stack(seed_rows), "poly")
+        for row, fw, rc in zip(seed_rows, fw_a.tolist(), rc_a.tolist()):
+            b = row.tobytes()
+            if b not in dist:
+                dist[b] = 0
+            queue.append((b, fw, rc))
+    last: set[bytes] = set()
+    head = 0
+    while head < len(queue):
+        s, fw, rc = queue[head]
+        head += 1
+        dd = dist[s] + 1
+        if direction != 1:
+            cl = s[-1]
+            bfL = ((fw - p - cl) * inv5) & MASK
+            brL = ((rc - p - (cl ^ 3) * q) * 5) & MASK
+            pre = s[:-1]
+            lefts = [(bytes((n,)) + pre, (bfL + n * q + p) & MASK,
+                      (brL + p + (n ^ 3)) & MASK) for n in range(4)]
+        if direction != -1:
+            c0 = s[0]
+            bfR = (5 * fw - 4 * p - c0 * p) & MASK
+            brR = ((rc - p - (c0 ^ 3)) * inv5) & MASK
+            suf = s[1:]
+            rights = [(suf + bytes((n,)), (bfR + n) & MASK,
+                       (brR + (n ^ 3) * q + p) & MASK) for n in range(4)]
+        if direction == -1:
+            nbrs = lefts
+        elif direction == 1:
+            nbrs = rights
+        else:  # interleaved L0,R0,L1,R1,... (StringUtils.allNeighbors:24-32)
+            nbrs = [x for pair in zip(lefts, rights) for x in pair]
+        for nb, nfw, nrc in nbrs:
+            sfw = nfw - TWO64 if nfw >= TWO63 else nfw
+            src = nrc - TWO64 if nrc >= TWO63 else nrc
+            oc = get(sfw if sfw < src else src)
+            if oc is not None and oc >= min_occ:
+                allowed = nb not in dist
+                if allowed and max_kmers is not None and len(dist) >= max_kmers:
+                    allowed = False
+                if allowed and max_radius is not None and dd > max_radius:
+                    allowed = False
+                if allowed:
+                    dist[nb] = dd
+                    queue.append((nb, nfw, nrc))
+                elif trim:
+                    last.add(s)
+    rows = {b: np.frombuffer(b, np.uint8) for b in dist}
+    if trim:
+        keep = _trim(rows, last, direction)
+        return {b: rows[b] for b in keep}
+    return rows
 
 
 def _bfs_layer_fifo(seed_rows: list[np.ndarray], kmap: KmerMap, k: int,

@@ -42,6 +42,11 @@ def _all_neighbors(kmer: str) -> list[str]:
     return out
 
 
+def kmer_key(s: str, k: int, hasher: str | None) -> int:
+    """Map key of a k-mer string (getKmerKey): ops.kmers.hash_str."""
+    return hash_str(s, hasher)
+
+
 class MutableKmerView:
     """Mutable count overlay over a KmerMap (for the destructive flood)."""
 
@@ -81,7 +86,7 @@ def seq_env_subgraph(sequence: str, k: int, kmap: KmerMap, hasher: str | None,
         return env.as_dict()
     # sequential FIFO over strings (cap-bounded or hashed regime)
     def occ(s):
-        return max(kmap.get(hash_str(s, hasher)), 0)
+        return max(kmap.get(kmer_key(s, k, hasher)), 0)
     dist: dict[str, int] = {}
     queue: list[str] = []
     for i in range(len(sequence) - k + 1):
@@ -120,9 +125,9 @@ def kmer_env_subgraph(seed_kmer: str, k: int, graph: MutableKmerView,
     while head < len(queue):
         cur = queue[head]
         head += 1
-        key = hash_str(cur, hasher)
+        key = kmer_key(cur, k, hasher)
         for nb in _all_neighbors(cur):
-            if graph.get(hash_str(nb, hasher)) > 0:
+            if graph.get(kmer_key(nb, k, hasher)) > 0:
                 queue.append(nb)
         subgraph[normalize(cur)] = graph.get(key)  # raw get, as the reference
         graph.zero(key)
@@ -229,7 +234,7 @@ class MembershipColor:
         self.rule_np = rule_np
 
     def __call__(self, seq: str) -> str:
-        key = hash_str(seq, self.hasher)
+        key = kmer_key(seq, self.k, self.hasher)
         member = [np.array([b.get(key) >= 0]) for b in self.bins]
         return str(self.rule_np(*member)[0])
 

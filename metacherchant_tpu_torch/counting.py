@@ -12,10 +12,10 @@ With the native parser, exact keys come from ragged rows: per launch one
 contiguous slice of the parsed codes and its chunk table go to the device,
 and only real windows reach the append buffer. The hashed regime and the
 Python readers pack (B, L) int8 batches, -1 padded, on the host.
-count_kmers_host and seed_keys_of_sequence are the host oracles;
-count_kmers is the tools' choice between the host oracle (MC_HOST_COUNT)
-and the device; load_present_kmer_strings recovers the strings of a hashed
-map.
+count_kmers_host, count_sequences_host and seed_keys_of_sequence are the
+host oracles; count_kmers is the tools' choice between the host oracle
+(MC_HOST_COUNT) and the device; load_present_kmer_strings recovers the
+strings of a hashed map.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from .dna import canonical_code, kmer_to_code, encode, CHAR_TO_CODE
+from .dna import canonical_code, kmer_to_code, encode, split_on_n, CHAR_TO_CODE
 from .io.readers import iter_reads_split
 from .kmer_map import KmerMap
 from .ops.kmers import hash_codes_np, pack_reads
@@ -346,6 +346,17 @@ def count_kmers_host(files: Iterable[str], k: int, hasher: str | None = None,
             if len(frag) < max(min_len, k):
                 continue
             _count_codes_into(counts, frag, k, hasher)
+    return KmerMap.from_dict(counts)
+
+
+def count_sequences_host(seqs: Iterable[str], k: int,
+                         hasher: str | None = None) -> KmerMap:
+    """Count k-mers of in-memory sequences (host), each split at N."""
+    counts: dict[int, int] = {}
+    for s in seqs:
+        for frag in split_on_n(encode(s)):
+            if len(frag) >= k:
+                _count_codes_into(counts, frag, k, hasher)
     return KmerMap.from_dict(counts)
 
 

@@ -91,6 +91,30 @@ def canonical_code(code: int, k: int) -> int:
     return min(code, revcomp_code(code, k))
 
 
+def split_on_n(codes: np.ndarray) -> list[np.ndarray]:
+    """Split a code array at N positions (code < 0), dropping the N.
+
+    Mirrors the reference's read splitting: reads are truncated at phred-0
+    positions (N is stored with phred 0) and the remainder re-emitted as a new
+    read (itmo:io/readers/FastaReaderFromXQSourceTrunc.java:55-95,
+    itmo:dna/DnaQ.java:21-30, 172-186).
+    """
+    if codes.size == 0:
+        return []
+    bad = np.flatnonzero(codes < 0)
+    if bad.size == 0:
+        return [codes]
+    pieces = []
+    start = 0
+    for b in bad:
+        if b > start:
+            pieces.append(codes[start:b])
+        start = b + 1
+    if start < codes.size:
+        pieces.append(codes[start:])
+    return pieces
+
+
 # ---------------------------------------------------------------------------
 # Vectorized numpy variants (host oracle / writer-side bulk work)
 # ---------------------------------------------------------------------------

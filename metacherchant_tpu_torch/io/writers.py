@@ -1,4 +1,5 @@
-"""Output writers: graph.txt, seqs.fasta, GFA, TSV, kmers.bin/stat.txt, FASTQ.
+"""Output writers: graph.txt, seqs.fasta, GFA, TSV, kmers.bin/stat.txt,
+FASTQ, FASTA, BINQ.
 
 Carried over from metacherchant_tpu/io/writers.py; the outputs must stay
 byte-identical to the JAX package's.
@@ -10,6 +11,8 @@ where the reference depends on JVM HashMap order (see SURVEY §7.3).
 from __future__ import annotations
 
 import os
+import struct
+from typing import Iterable
 
 import numpy as np
 
@@ -253,6 +256,18 @@ def read_kmers_bin(path: str, threshold: int = 0) -> tuple[np.ndarray, np.ndarra
 # FASTQ / FASTA writers
 # ---------------------------------------------------------------------------
 
+def write_fastq(path: str, records: Iterable[tuple[str, str, np.ndarray]],
+                quality: str = "illumina") -> None:
+    """WritersUtils.writeDnaQsToFastqFile (Illumina Phred+64 encoding default,
+    itmo:io/writers/WritersUtils.java:50-80)."""
+    offset = 64 if quality == "illumina" else 33
+    _ensure_dir(path)
+    with open(path, "w") as out:
+        for name, seq, phred in records:
+            q = "".join(chr(min(int(p), 62) + offset) for p in phred)
+            out.write(f"@{name}\n{seq}\n+\n{q}\n")
+
+
 def format_fastq_blob(codes: np.ndarray, phred: np.ndarray,
                       lengths: np.ndarray, idx: np.ndarray,
                       start_n: int, offset: int) -> bytes:
@@ -362,6 +377,22 @@ class FastqWriter:
         self._f = open(path, "wb")
         self._n = 0
 
+    def _format(self, dnaq) -> str:
+        self._n += 1
+        q = (np.minimum(np.asarray(dnaq.phred, np.int16), 62)
+             + self._offset).astype(np.uint8).tobytes().decode("latin-1")
+        return f"@{self._n}\n{dnaq.to_string()}\n+\n{q}\n"
+
+    def write(self, dnaq) -> None:
+        """One record (a readers.DnaQ), numbered after the last one."""
+        self._f.write(self._format(dnaq).encode("latin-1"))
+
+    def write_many(self, dnaqs) -> None:
+        """Records of several DnaQs: one formatting pass, one file write."""
+        if dnaqs:
+            self._f.write(
+                "".join(self._format(d) for d in dnaqs).encode("latin-1"))
+
     def write_batch(self, codes: np.ndarray, phred: np.ndarray,
                     lengths: np.ndarray, idx: np.ndarray) -> None:
         """Vectorized bin write straight from ReadBatch-style arrays: one
@@ -379,3 +410,23 @@ class FastqWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def write_fasta(path: str, records: Iterable[tuple[str, str]]) -> None:
+    """'>name' and sequence lines, one pair per (name, seq) record."""
+    _ensure_dir(path)
+    with open(path, "w") as out:
+        for name, seq in records:
+            out.write(f">{name}\n{seq}\n")
+
+
+def write_binq(path: str, dnaqs) -> None:
+    """BINQ writer: int32 big-endian length + (phred<<2 | nuc) bytes per read
+    (inverse of readers._iter_binq; itmo:dna/DnaQ.java:140-150 layout)."""
+    _ensure_dir(path)
+    with open(path, "wb") as out:
+        for d in dnaqs:
+            data = ((np.minimum(d.phred.astype(np.int32), 62) << 2)
+                    | (d.codes.astype(np.int32) & 3)).astype(np.uint8)
+            out.write(struct.pack(">i", len(data)))
+            out.write(data.tobytes())

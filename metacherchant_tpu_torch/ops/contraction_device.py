@@ -174,6 +174,10 @@ def _min_rotation(s: str) -> str:
     return min(s[i:] + s[:i] for i in range(len(s)))
 
 
+def reverse_complement_str(s: str) -> str:
+    return reverse_complement(s)
+
+
 def assemble_nodes(unitigs: list[tuple[str, object]], k: int,
                    decorate=None) -> list[Node]:
     """Node pairs + symmetric (k-1)-overlap adjacency over contracted seqs

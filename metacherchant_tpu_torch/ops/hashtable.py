@@ -164,7 +164,13 @@ class DeviceHashTable:
                                 device=self.device)
         self.tcnts = torch.zeros(self.capacity, dtype=torch.int32,
                                  device=self.device)
-        self.size = 0
+        self._size = 0          # live keys, kept exact by every insert
+
+    @property
+    def size(self) -> int:
+        """Exact live-entry count: the table's live slots, counted on its
+        device (one sync)."""
+        return int((self.tkeys != EMPTY).sum())
 
     @classmethod
     def from_kmer_map(cls, kmap, device: torch.device) -> "DeviceHashTable":
@@ -180,10 +186,10 @@ class DeviceHashTable:
     def _insert(self, ukeys: torch.Tensor, ucnts: torch.Tensor) -> None:
         new, residual = _insert_unique(self.tkeys, self.tcnts, ukeys, ucnts)
         _raise_residual(residual)
-        self.size += new
+        self._size += new
 
     def _ensure_room(self, incoming: int) -> None:
-        while self.size + incoming > self.capacity * self.max_load:
+        while self._size + incoming > self.capacity * self.max_load:
             self._grow()
 
     def _grow(self) -> None:
@@ -195,7 +201,7 @@ class DeviceHashTable:
                                 device=self.device)
         self.tcnts = torch.zeros(self.capacity, dtype=torch.int32,
                                  device=self.device)
-        self.size = 0
+        self._size = 0
         self._insert(keys, cnts)
 
     # -- counting -----------------------------------------------------------

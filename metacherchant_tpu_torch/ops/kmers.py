@@ -180,12 +180,15 @@ def _signed(x: int) -> int:
     return x - (1 << 64) if x >= (1 << 63) else x
 
 
-def hash_codes_np(codes: np.ndarray, hasher: str) -> np.ndarray:
-    """Canonical hash of (N, k) nucleotide-code rows: signed min(fw, rc) of
-    the Java longs, via uint64 wraparound (fused fw/rc loops,
+def hash_codes_pair_np(codes: np.ndarray, hasher: str
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """Pre-min (fw, rc) hash pair of (N, k) code rows as uint64 bit patterns.
+
+    Exact Java long semantics via uint64 wraparound (fused fw/rc loops,
     src/utils/PolynomialHash.java:19-28, src/utils/FNV1AHash.java:33-42).
-    The host's one copy of the hash; hash_canonical_kmers is the batched
-    torch form over reads."""
+    The sliding-poly BFS (algo/environment_hashed._bfs_scalar_poly) seeds
+    its per-state (fw, rc) registers from it; hash_canonical_kmers is the
+    batched torch form over reads."""
     codes = np.asarray(codes, np.uint64)
     n, k = codes.shape
     if hasher == "poly":
@@ -208,6 +211,14 @@ def hash_codes_np(codes: np.ndarray, hasher: str) -> np.ndarray:
             else:
                 fw = (fw ^ cf) * prime
                 rc = (rc ^ cr) * prime
+    return fw, rc
+
+
+def hash_codes_np(codes: np.ndarray, hasher: str) -> np.ndarray:
+    """Canonical hash of (N, k) nucleotide-code rows: signed min(fw, rc) of
+    the Java longs (src/utils/AbstractHashFunction.java + the hash classes).
+    Per row equal to hash_str of the row's string."""
+    fw, rc = hash_codes_pair_np(codes, hasher)
     return np.minimum(fw.view(np.int64), rc.view(np.int64))
 
 
@@ -245,13 +256,41 @@ def keys_of_kmer_strings(kmers: list[str], k: int, hasher: str | None
     return np.minimum(fw.view(np.int64), rc.view(np.int64))
 
 
+def poly_hash_str(s: str) -> int:
+    """Reference polynomial hash of one k-mer string
+    (src/utils/PolynomialHash.java:7-16)."""
+    from ..dna import CHAR_TO_CODE
+    fw = rc = 1
+    n = len(s)
+    for i in range(n):
+        fw = (fw * 5 + int(CHAR_TO_CODE[ord(s[i])])) & MASK64
+        rc = (rc * 5 + (3 ^ int(CHAR_TO_CODE[ord(s[n - 1 - i])]))) & MASK64
+    return min(_signed(fw), _signed(rc))
+
+
+def fnv1a_hash_str(s: str) -> int:
+    """Reference FNV-1a hash of one k-mer string
+    (src/utils/FNV1AHash.java:21-31)."""
+    from ..dna import CHAR_TO_CODE
+    fw = rc = FNV_OFFSET_BASIS
+    n = len(s)
+    for i in range(n):
+        fw = ((fw ^ int(CHAR_TO_CODE[ord(s[i])])) * FNV_PRIME) & MASK64
+        rc = ((rc ^ (3 ^ int(CHAR_TO_CODE[ord(s[n - 1 - i])]))) * FNV_PRIME
+              ) & MASK64
+    return min(_signed(fw), _signed(rc))
+
+
 def hash_str(s: str, hasher: str | None) -> int:
     """Canonical key of a k-mer string under the given regime (host)."""
     if hasher is None:
         from ..dna import kmer_to_code, canonical_code
         return _signed(canonical_code(kmer_to_code(s), len(s)))
-    return int(hash_codes_np(codes_matrix_of_kmer_strings([s], len(s)),
-                             hasher)[0])
+    if hasher == "poly":
+        return poly_hash_str(s)
+    if hasher == "fnv1a":
+        return fnv1a_hash_str(s)
+    raise ValueError(hasher)
 
 
 def pack_reads(fragments: list[np.ndarray], batch: int, length: int

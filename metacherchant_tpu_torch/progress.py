@@ -50,6 +50,16 @@ def time_to_string_without_ms(ms: float) -> str:
     return time_to_string(s * 1000)
 
 
+def to_clock_like_string(ms: float) -> str:
+    """itmo:statistics/Timer.java:61-69 exact: 'H*:MM:SS'."""
+    s = int(ms / 1000.0 + 0.5)
+    m = s // 60
+    h = m // 60
+    s %= 60
+    m %= 60
+    return f"{h}:{m // 10}{m % 10}:{s // 10}{s % 10}"
+
+
 class Progress:
     """Streaming progress: periodic count lines, plus reference-format
     'Progress: X.X%, remaining time: T' when a total is known.

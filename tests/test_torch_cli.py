@@ -175,6 +175,34 @@ def test_device_contract_byte_identical_to_jax(data, k, extra, env, tmp_path,
         assert got[name] == want[name], name
 
 
+def test_scalar_poly_fifo_byte_identical_to_jax(long_recipe, tmp_path,
+                                                monkeypatch):
+    """MC_NATIVE_BFS=0 at k = 55 with the poly hash: both packages walk with
+    their scalar sliding-poly FIFO (a spy on the port's own module sees each
+    direction of each gene go through it, and never the layer FIFO); the
+    files are byte-identical."""
+    from metacherchant_tpu_torch.algo import environment_hashed as TH
+    monkeypatch.setenv("MC_PLATFORM", "cpu")
+    monkeypatch.setenv("MC_NATIVE_BFS", "0")
+    engines = []
+    for name in ("_bfs_scalar_poly", "_bfs_layer_fifo"):
+        def spy(*args, _real=getattr(TH, name), _name=name, **kw):
+            engines.append(_name)
+            return _real(*args, **kw)
+        monkeypatch.setattr(TH, name, spy)
+    assert jax_main(_args(long_recipe, 55, tmp_path / "oj",
+                          tmp_path / "wj")) == 0
+    assert port_main(_args(long_recipe, 55, tmp_path / "ot",
+                           tmp_path / "wt")) == 0
+    assert engines == ["_bfs_scalar_poly"] * 4   # 2 genes x 2 directions
+    got, want = _tree(tmp_path / "ot"), _tree(tmp_path / "oj")
+    assert sorted(got) == sorted(want) and len(got) == 10
+    assert got[os.path.join("geneA", "graph.txt")]
+    for name in want:
+        assert got[name] == want[name], name
+    assert "scalar sliding-poly FIFO BFS" in _log(tmp_path / "wt")
+
+
 @pytest.mark.parametrize("k,extra,env", [
     (21, (), {"MC_DEVICE_BFS": "1"}),
     (55, (), {"MC_DEVICE_BFS": "1"}),
@@ -182,8 +210,8 @@ def test_device_contract_byte_identical_to_jax(data, k, extra, env, tmp_path,
     (21, ("--bothdirs",), {"MC_DEVICE_BFS": "1",
                            "MC_DEVICE_BFS_ENGINE": "probe"}),
 ], ids=["device-bfs", "device-bfs-hashed", "hash-engine", "device-bfs-probe"])
-def test_unported_paths_fail_clearly(recipe, long_recipe, k, extra, env,
-                                     tmp_path, monkeypatch):
+def test_device_paths_byte_identical_to_jax(recipe, long_recipe, k, extra,
+                                            env, tmp_path, monkeypatch):
     """The paths the port once refused (the device BFS engines in both
     regimes, the hash counting engine) now run: byte-identical to the JAX
     package under the same switches."""
@@ -204,8 +232,8 @@ def test_unported_paths_fail_clearly(recipe, long_recipe, k, extra, env,
 
 
 @pytest.mark.parametrize("engine", ["merge", "chunk", "sharded"])
-def test_other_count_engines_still_fail_clearly(recipe, engine, tmp_path,
-                                                monkeypatch, no_group_left):
+def test_count_engines_byte_identical_to_jax(recipe, engine, tmp_path,
+                                             monkeypatch, no_group_left):
     """The counting engines the port once refused now run the tool: files
     byte-identical to the JAX package's under the same MC_COUNT_ENGINE."""
     monkeypatch.setenv("MC_PLATFORM", "cpu")

@@ -21,7 +21,7 @@ from metacherchant_tpu_torch.ops import contraction_device as TD
 from metacherchant_tpu_torch.ops.kmers import fw_codes_of_kmer_strings
 from metacherchant_tpu_torch.runner import main as port_main
 
-from test_torch_fmt import _tree, _run_both, fmt_data  # noqa: F401
+from torch_fmt_data import fmt_data, run_both, tree  # noqa: F401
 
 
 @pytest.mark.parametrize("k", [1, 3, 21, 31])
@@ -170,7 +170,7 @@ def test_fmt_visualiser_device_contract_byte_identical_to_jax(
     monkeypatch.setenv("MC_PLATFORM", "cpu")
     monkeypatch.delenv("MC_DEVICE_CONTRACT", raising=False)
     monkeypatch.setenv(*switch)
-    got = _run_both(fmt_data, "fmt-visualiser", 21, tmp_path)
+    got = run_both(fmt_data, "fmt-visualiser", 21, tmp_path)
     monkeypatch.setenv("MC_DEVICE_CONTRACT", "0")
     assert port_main(["-t", "fmt-visualiser", "-k", "21", "-i",
                       str(fmt_data / "bins"), "--ext", "fastq",
@@ -179,7 +179,7 @@ def test_fmt_visualiser_device_contract_byte_identical_to_jax(
                       "-after", str(fmt_data / "after.fastq"),
                       "-o", str(tmp_path / "host"),
                       "--work-dir", str(tmp_path / "wh")]) == 0
-    host = _tree(tmp_path / "host")
+    host = tree(tmp_path / "host")
 
     def segments(blob):
         return sorted((normalize(ln.split("\t")[2]), ln.split("\t")[5])

@@ -100,8 +100,8 @@ def test_seed_keys_of_sequence_matches_jax():
 
 
 @pytest.mark.parametrize("engine", ["hash", "merge", "chunk", "sharded"])
-def test_unported_engines_raise(reads_fastq, engine, monkeypatch,
-                                no_group_left):
+def test_every_count_engine_matches_jax(reads_fastq, engine, monkeypatch,
+                                        no_group_left):
     """Every engine the port once refused now counts, through
     MC_COUNT_ENGINE: the JAX package's map under the same engine, key for
     key ('merge' is ops/mergecount.MergeCounter and 'chunk'

@@ -1,12 +1,10 @@
 """The port's FMT family against the JAX package: the mutable map view, the
 two environment calculators, the color predicates, the hashed regime's
-string recovery, the colored picture on the host route, and
-`fmt-visualiser`, `fmt-visualizer` and `recipient-visualiser` end to end (both
-packages run in-process through runner.main, outputs compared byte for byte).
+string recovery, the colored picture on the host route, and `fmt-visualiser`
+end to end (both packages run in-process through runner.main, outputs
+compared byte for byte; test_torch_fmt_tools.py has the other two tools).
 Inputs are made from a seed with numpy; the tolerance is zero.
 """
-import os
-
 import numpy as np
 import pytest
 
@@ -16,48 +14,15 @@ from metacherchant_tpu.counting import (count_sequences_host,
 from metacherchant_tpu.dna import reverse_complement
 from metacherchant_tpu.kmer_map import KmerMap as JaxKmerMap
 from metacherchant_tpu.ops.kmers import hash_str
-from metacherchant_tpu.runner import main as jax_main
 from metacherchant_tpu_torch.algo import fmt as TF
 from metacherchant_tpu_torch.counting import load_present_kmer_strings
 from metacherchant_tpu_torch.kmer_map import KmerMap
-from metacherchant_tpu_torch.runner import main as port_main
-
-STEMS = ("settle", "not_settle", "stay", "gone", "came_from_donor",
-         "came_from_baseline", "came_from_both", "came_itself")
+from torch_fmt_data import (fmt_data, random_genome, run_both, sample_reads,
+                            tree)
 
 
 def _port_map(jm: JaxKmerMap) -> KmerMap:
     return KmerMap(jm.keys, jm.counts)
-
-
-def _tree(root) -> dict[str, bytes]:
-    files = {}
-    for dirpath, _, names in os.walk(root):
-        for name in names:
-            p = os.path.join(dirpath, name)
-            with open(p, "rb") as fh:
-                files[os.path.relpath(p, root)] = fh.read()
-    return files
-
-
-def _genome(rng, n: int) -> str:
-    return "".join(rng.choice(list("ACGT"), n))
-
-
-def _reads(rng, g: str, n: int, length: int) -> list[str]:
-    out = []
-    for _ in range(n):
-        i = int(rng.integers(0, len(g) - length))
-        r = g[i:i + length]
-        out.append(reverse_complement(r) if rng.random() < 0.5 else r)
-    return out
-
-
-def _write_fastq(path, reads) -> str:
-    with open(path, "w") as f:
-        for i, r in enumerate(reads):
-            f.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")
-    return str(path)
 
 
 # ---------------------------------------------------------------------------
@@ -68,11 +33,11 @@ def _write_fastq(path, reads) -> str:
                                       (35, "fnv1a")])
 def test_kmermap_get_and_contains_match_jax(k, hasher):
     rng = np.random.default_rng(k)
-    g = _genome(rng, 300)
+    g = random_genome(rng, 300)
     jm = count_sequences_host([g, g[:120]], k, hasher)
     tm = _port_map(jm)
     queries = [g[i:i + k] for i in range(0, 200, 7)]
-    queries += [_genome(rng, k) for _ in range(20)]
+    queries += [random_genome(rng, k) for _ in range(20)]
     keys = np.array([hash_str(q, hasher) for q in queries], np.int64)
     assert [tm.get(int(x)) for x in keys] == [jm.get(int(x)) for x in keys]
     assert np.array_equal(tm.contains(keys), jm.contains(keys))
@@ -84,8 +49,9 @@ def test_kmer_env_flood_matches_jax(k, hasher):
     """The destructive flood, duplicate admissions included: the same
     subgraphs in the same order, and the same zeroed counts after."""
     rng = np.random.default_rng(k + 1)
-    g = _genome(rng, 200)
-    seqs = [g, g[50:120] + _genome(rng, 40), "T" * 20, _genome(rng, 60)]
+    g = random_genome(rng, 200)
+    seqs = [g, g[50:120] + random_genome(rng, 40), "T" * 20,
+            random_genome(rng, 60)]
     jm = count_sequences_host(seqs, k, hasher)
     jv, tv = JF.MutableKmerView(jm), TF.MutableKmerView(_port_map(jm))
     subs = 0
@@ -109,7 +75,7 @@ def test_kmer_env_flood_matches_jax(k, hasher):
         "k35-fnv1a-cap"])
 def test_seq_env_subgraph_matches_jax(k, hasher, max_radius, max_kmers):
     rng = np.random.default_rng(5)
-    genome = _genome(rng, 500)
+    genome = random_genome(rng, 500)
     jm = count_sequences_host([genome, genome[100:300]], k, hasher)
     tm = _port_map(jm)
     absent = "ACGT" * 10  # no 7-mer of it is in the genome
@@ -126,11 +92,11 @@ def test_seq_env_subgraph_matches_jax(k, hasher, max_radius, max_kmers):
 def test_color_predicates_match_jax(k, hasher):
     """Scalar == batched in the port, and both == the JAX package."""
     rng = np.random.default_rng(5)
-    seqs = [_genome(rng, 200) for _ in range(4)]
+    seqs = [random_genome(rng, 200) for _ in range(4)]
     jbins = [count_sequences_host([s], k, hasher) for s in seqs]
     tbins = [_port_map(b) for b in jbins]
     kmers = sorted({s[i:i + k] for s in seqs for i in range(0, 150, 3)}
-                   | {_genome(rng, k) for _ in range(50)})
+                   | {random_genome(rng, k) for _ in range(50)})
     for jc, tc in ((JF.two_bin_color(k, hasher, *jbins[:2]),
                     TF.two_bin_color(k, hasher, *tbins[:2])),
                    (JF.four_bin_color(k, hasher, *jbins),
@@ -147,11 +113,12 @@ def test_load_present_kmer_strings_matches_jax(tmp_path, k, hasher):
     """Strings recovered from a hashed map; the map also holds keys the
     reads lack, and the reads windows the map lacks."""
     rng = np.random.default_rng(7)
-    genome = _genome(rng, 400)
-    reads = _reads(rng, genome, 50, 90) + [_genome(rng, 70)]
+    genome = random_genome(rng, 400)
+    reads = sample_reads(rng, genome, 50, 90) + [random_genome(rng, 70)]
     f = tmp_path / "reads.fasta"
     f.write_text("".join(f">r{i}\n{r}\n" for i, r in enumerate(reads)))
-    jm = count_sequences_host(reads[:40] + [_genome(rng, 100)], k, hasher)
+    jm = count_sequences_host(reads[:40] + [random_genome(rng, 100)], k,
+                              hasher)
     want = jax_lpks([str(f)], k, hasher, jm, rows_per_batch=500)
     got = load_present_kmer_strings([str(f)], k, hasher, _port_map(jm),
                                     rows_per_batch=500)
@@ -166,10 +133,10 @@ def test_build_colored_picture_host_matches_jax(tmp_path, gene,
                                                 monkeypatch):
     monkeypatch.delenv("MC_DEVICE_CONTRACT", raising=False)
     rng = np.random.default_rng(11)
-    genome = _genome(rng, 1500)
+    genome = random_genome(rng, 1500)
     k = 15
     sub = {}
-    for s in _reads(rng, genome, 60, 60):
+    for s in sample_reads(rng, genome, 60, 60):
         for i in range(len(s) - k + 1):
             w = s[i:i + k]
             w = min(w, reverse_complement(w))
@@ -184,7 +151,7 @@ def test_build_colored_picture_host_matches_jax(tmp_path, gene,
             "pic", gene_sequence=gene_seq, merge_on_gene=merge_on_gene,
             seq_id_mode=id_mode)
         assert sum(not x.deleted for x in nodes) > 10
-    got, want = _tree(tmp_path / "t"), _tree(tmp_path / "j")
+    got, want = tree(tmp_path / "t"), tree(tmp_path / "j")
     assert sorted(got) == ["pic.gfa", "pic_seqs.fasta"] and got == want
     gfa = got["pic.gfa"].decode()
     for color in ("GREEN", "BLUE", "GREY"):
@@ -194,57 +161,8 @@ def test_build_colored_picture_host_matches_jax(tmp_path, gene,
 
 
 # ---------------------------------------------------------------------------
-# CLI: the three FMT tools, byte for byte
+# CLI: fmt-visualiser, byte for byte (the fixture: torch_fmt_data.fmt_data)
 # ---------------------------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def fmt_data(tmp_path_factory):
-    """Donor, before and after metagenomes (reads of 80 bp from 400 bp
-    genomes, the after one sharing a piece with each of the others), the
-    classified read bins of the FMT script and two sequences."""
-    tmp = tmp_path_factory.mktemp("fmt")
-    rng = np.random.default_rng(11)
-    donor, before, new = (_genome(rng, 400) for _ in range(3))
-    after = donor[:150] + before[200:350] + new[:100]
-    for name, g in (("donor", donor), ("before", before), ("after", after)):
-        _write_fastq(tmp / f"{name}.fastq", _reads(rng, g, 60, 80))
-    src = {"settle": donor[:200], "not_settle": donor[200:],
-           "stay": before[150:], "gone": before[:250],
-           "came_from_donor": after[:150], "came_from_baseline": after[150:300],
-           "came_from_both": after[100:200], "came_itself": after[300:]}
-    bins = tmp / "bins"
-    bins.mkdir()
-    for stem in STEMS:
-        for x in ("1", "2", "s"):
-            _write_fastq(bins / f"{stem}_{x}.fastq",
-                         _reads(rng, src[stem], 8, 80))
-    (tmp / "seqs.fasta").write_text(
-        f">s0\n{after[20:130]}\n>s1\n{after[260:380]}\n>s2\n"
-        f"{_genome(rng, 90)}\n")
-    return tmp
-
-
-def _fmt_args(data, tool: str, k: int, out, wd, *extra) -> list[str]:
-    args = ["-t", tool, "-k", str(k), "-i", str(data / "bins"),
-            "--ext", "fastq", "-o", str(out), "--work-dir", str(wd)]
-    if tool == "recipient-visualiser":
-        return args + ["-after", str(data / "after.fastq"),
-                       "--seq", str(data / "seqs.fasta"), *extra]
-    return args + ["-donor", str(data / "donor.fastq"),
-                   "-before", str(data / "before.fastq"),
-                   "-after", str(data / "after.fastq"), *extra]
-
-
-def _run_both(data, tool, k, tmp_path, *extra) -> dict[str, bytes]:
-    for main, tag in ((jax_main, "j"), (port_main, "t")):
-        assert main(_fmt_args(data, tool, k, tmp_path / f"o{tag}",
-                              tmp_path / f"w{tag}", *extra)) == 0
-    got, want = _tree(tmp_path / "ot"), _tree(tmp_path / "oj")
-    assert sorted(got) == sorted(want)
-    for name in want:
-        assert got[name] == want[name], name
-    return got
-
 
 @pytest.mark.parametrize("k,extra", [(21, ()), (55, ()),
                                      (33, ("--hash", "fnv1a"))],
@@ -255,34 +173,10 @@ def test_fmt_visualiser_byte_identical_to_jax(fmt_data, k, extra, tmp_path,
     reads (load_present_kmer_strings)."""
     monkeypatch.setenv("MC_PLATFORM", "cpu")
     monkeypatch.delenv("MC_DEVICE_CONTRACT", raising=False)
-    got = _run_both(fmt_data, "fmt-visualiser", k, tmp_path, *extra)
+    got = run_both(fmt_data, "fmt-visualiser", k, tmp_path, *extra)
     assert sorted(got) == sorted(f"{n}{s}" for n in ("donor", "before",
                                                      "after")
                                  for s in (".gfa", "_seqs.fasta"))
     after = got["after.gfa"].decode()
     for color in ("RED", "BLUE", "YELLOW"):
         assert f"CL:Z:{color}" in after
-
-
-@pytest.mark.parametrize("k", [21, 33])
-def test_fmt_visualizer_byte_identical_to_jax(fmt_data, k, tmp_path,
-                                              monkeypatch):
-    monkeypatch.setenv("MC_PLATFORM", "cpu")
-    got = _run_both(fmt_data, "fmt-visualizer", k, tmp_path)
-    for sub in ("donor", "before", "after"):
-        assert f"{sub}/comp0.gfa" in got and f"{sub}/comp0_seqs.fasta" in got
-
-
-@pytest.mark.parametrize("k,extra", [
-    (21, ("--maxradius", "40")), (21, ("--maxkmers", "60")),
-    (33, ("--maxradius", "30")), (21, ()),
-], ids=["k21-radius", "k21-maxkmers", "k33-radius", "k21-default-radius"])
-def test_recipient_visualiser_byte_identical_to_jax(fmt_data, k, extra,
-                                                    tmp_path, monkeypatch):
-    """s2 is absent from the after metagenome: no files for it."""
-    monkeypatch.setenv("MC_PLATFORM", "cpu")
-    monkeypatch.delenv("MC_DEVICE_CONTRACT", raising=False)
-    got = _run_both(fmt_data, "recipient-visualiser", k, tmp_path, *extra)
-    assert sorted(got) == sorted(f"after/comp_{i}{s}" for i in (0, 1)
-                                 for s in (".gfa", "_seqs.fasta"))
-    assert "_start" in got["after/comp_0_seqs.fasta"].decode()

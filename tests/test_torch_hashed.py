@@ -1,8 +1,9 @@
 """The port's hashed-regime environment BFS against the JAX package.
 
-Both routes of the port (the native C++ FIFO, and with MC_NATIVE_BFS=0 the
-layer FIFO, for both hashes) must give the JAX package's environment
-exactly: the same normalized k-mers, counts, extend count and fail flag.
+Every host route of the port (the native C++ FIFO, and with MC_NATIVE_BFS=0
+the scalar sliding-poly FIFO for poly and the layer FIFO for FNV-1a) must
+give the JAX package's environment exactly: the same normalized k-mers,
+counts, extend count and fail flag.
 Inputs are made from a seed with numpy; both packages get the same map
 arrays.
 """
@@ -63,8 +64,8 @@ def _same_env(got, want) -> None:
 @pytest.mark.parametrize("cfg", CFGS, ids=CFG_IDS)
 def test_build_environment_hashed_matches_jax(cfg, hasher, native_bfs,
                                               monkeypatch):
-    """MC_NATIVE_BFS=0 takes the layer FIFO for both hashes; the JAX side
-    runs its default engine."""
+    """MC_NATIVE_BFS=0 takes the scalar sliding-poly FIFO for poly and the
+    layer FIFO for FNV-1a; the JAX side runs its default engine."""
     k = 33
     gene, jm, tm = _setup(1, k, hasher)
     want = JH.build_environment_hashed([gene], k, jm, 1, hasher, **cfg)
@@ -121,9 +122,10 @@ def _seed_rows(k: int, hasher: str):
 @pytest.mark.parametrize("direction", [-1, 1, 0])
 @pytest.mark.parametrize("hasher", ["poly", "fnv1a"])
 def test_layer_fifo_matches_jax(hasher, direction):
-    """The port's Python engine against the JAX package's Python engines,
-    state for state: its layer FIFO, and for poly also its scalar
-    sliding-poly FIFO, which the port does not carry."""
+    """The port's Python engines against the JAX package's, state for
+    state, in every direction and termination mode (unbounded, radius with
+    trim, max_kmers): the layer FIFO, and for poly the scalar sliding-poly
+    FIFO, which builds and then reuses the map's _hash_dict."""
     k = 37
     seeds, jm, tm = _seed_rows(k, hasher)
     for mr, mk, trim in ((None, None, False), (25, None, True),
@@ -134,8 +136,14 @@ def test_layer_fifo_matches_jax(hasher, direction):
         assert set(got) == set(JH._bfs_layer_fifo(seeds, jm, k, 3, hasher,
                                                   direction, mr, mk, trim))
         if hasher == "poly":
-            assert set(got) == set(JH._bfs_scalar_poly(
-                seeds, jm, k, 3, direction, mr, mk, trim))
+            want = JH._bfs_scalar_poly(seeds, jm, k, 3, direction, mr, mk,
+                                       trim)
+            scalar = TH._bfs_scalar_poly(seeds, tm, k, 3, direction, mr, mk,
+                                         trim)
+            assert set(scalar) == set(want) == set(got)
+            assert all(np.array_equal(scalar[b], want[b]) for b in want)
+            assert tm._hash_dict == jm._hash_dict
+            assert len(tm._hash_dict) == len(tm)
 
 
 @pytest.mark.parametrize("hasher", ["poly", "fnv1a"])
