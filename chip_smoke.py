@@ -135,6 +135,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import logging
@@ -186,6 +187,13 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def _launches() -> int:
+    """The extraction's launches since the process started (the port's
+    counter extract.launches)."""
+    from metacherchant_tpu_torch import trace
+    return trace.counter("extract.launches")
 
 
 def say(phase: str, msg: str) -> None:
@@ -469,24 +477,26 @@ class _Stamps(logging.Handler):
     """Each log record's time, message and the kernel's launch count."""
 
     def __init__(self):
-        from metacherchant_tpu_torch.ops import extract_cuda
         super().__init__()
-        self.kernel = extract_cuda
+        self.base = _launches()
         self.records: list[tuple[float, str, int]] = []
 
     def emit(self, record):
         self.records.append((time.perf_counter(), record.getMessage(),
-                             self.kernel.LAUNCHES))
+                             _launches() - self.base))
 
 
 class Run:
     """One drive of runner.main: seconds, kernel launches, log lines with
-    their seconds from the start, and the launches counted by each line."""
+    their seconds from the start, the launches counted by each line, and
+    the port's spans (trace.py) with their t0 and t1 in seconds from the
+    start."""
 
     def __init__(self, seconds: float, launches: int,
-                 log: list[tuple[float, str]], counts: list[int]):
+                 log: list[tuple[float, str]], counts: list[int],
+                 spans: list):
         self.seconds, self.launches, self.log = seconds, launches, log
-        self.counts = counts
+        self.counts, self.spans = counts, spans
 
     def line(self, prefix: str) -> tuple[float, str]:
         hits = [(t, m) for t, m in self.log if m.startswith(prefix)]
@@ -500,8 +510,16 @@ class Run:
 
 
 def bfs_lines(phase: str, run: Run) -> None:
-    """Print a run's BFS engine lines (per direction: engine, seconds,
-    layers) and the dense adjacency's build, from its debug log."""
+    """Print a run's BFS directions (its bfs.direction spans: engine,
+    direction, visited k-mers, seconds), then the device engines' lines
+    (per direction: layers) and the dense adjacency's build, from its debug
+    log."""
+    for sp in sorted((sp for sp in run.spans if sp.name == "bfs.direction"),
+                     key=lambda sp: sp.t0):
+        a = sp.attrs
+        say(phase, f"  at {sp.t0:.3f} s: {a['engine']} BFS, direction "
+                   f"{a['direction']}: {a.get('visited')} visited in "
+                   f"{sp.seconds:.3f} s ({sp.cpu_s:.3f} s CPU)")
     for t, m in run.log:
         if " BFS, direction " in m or m.startswith("DenseDBG"):
             say(phase, f"  at {t:.3f} s: {m}")
@@ -509,9 +527,10 @@ def bfs_lines(phase: str, run: Run) -> None:
 
 def drive(argv: list[str], **env: str) -> Run:
     """runner.main(argv) with `env` set for the run only (MC_PLATFORM=cuda
-    unless given), the extraction kernel's launch count set to 0 just before
-    and read just after. Fails unless the run returns 0."""
-    from metacherchant_tpu_torch.ops import extract_cuda
+    unless given), inside a recording of the port's spans, with the
+    extraction's launches counted from just before to just after. Fails
+    unless the run returns 0."""
+    from metacherchant_tpu_torch import trace
     from metacherchant_tpu_torch.runner import main as port_main
     env = {"MC_PLATFORM": "cuda", **env}
     saved = {name: os.environ.get(name) for name in env}
@@ -521,13 +540,14 @@ def drive(argv: list[str], **env: str) -> Run:
     # collect the cyclic garbage of earlier runs (the host sweep's Node
     # pairs) here, so that no run pays for the one before it
     gc.collect()
-    extract_cuda.LAUNCHES = 0
+    before = _launches()
     t0 = time.perf_counter()
     try:
-        rc = port_main(argv)
+        with trace.recording() as rec:
+            rc = port_main(argv)
     finally:
         seconds = time.perf_counter() - t0
-        launches = extract_cuda.LAUNCHES
+        launches = _launches() - before
         logging.getLogger().removeHandler(stamps)
         for name, value in saved.items():
             if value is None:
@@ -535,9 +555,11 @@ def drive(argv: list[str], **env: str) -> Run:
             else:
                 os.environ[name] = value
     check(rc == 0, f"{' '.join(argv[:2])} rc={rc} ({env})")
+    spans = [dataclasses.replace(sp, t0=sp.t0 - t0, t1=sp.t1 - t0)
+             for sp in rec.spans]
     return Run(seconds, launches,
                [(t - t0, m) for t, m, _ in stamps.records],
-               [n for _, _, n in stamps.records])
+               [n for _, _, n in stamps.records], spans)
 
 
 def phase_oracle(rng, genomes: np.ndarray, tmp: str) -> str:
@@ -661,15 +683,14 @@ def counting_breakdown(fq: str, card: str) -> None:
     count_kmers_device([fq], MAIN_K, device=torch.device("cuda"))
     torch.cuda.synchronize()
     t_plain_run = time.perf_counter() - t0
-    from metacherchant_tpu_torch.ops import extract_cuda
-    before = extract_cuda.LAUNCHES
+    before = _launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         count_kmers_device([fq], MAIN_K, device=torch.device("cuda"))
         torch.cuda.synchronize()
         t_total = time.perf_counter() - t0
-    launches = extract_cuda.LAUNCHES - before
+    launches = _launches() - before
     parts = {"kernel": 0.0, "HtoD": 0.0, "DtoH": 0.0, "other": 0.0}
     for ev in prof.key_averages():
         us = _self_device_us(ev)
@@ -824,7 +845,6 @@ def hash_engine_checks(rng, fq: str, small_fq: str, card: str) -> int:
     table's lookup against KmerMap.get_many on LOOKUP_QUERIES queries.
     Returns the hash engine's kernel launches on the slice's reads."""
     from metacherchant_tpu_torch.counting import count_kmers_device
-    from metacherchant_tpu_torch.ops import extract_cuda
     from metacherchant_tpu_torch.ops.hashtable import DeviceHashTable
     from metacherchant_tpu_torch.ops.kmers import SENTINEL
     dev = torch.device("cuda")
@@ -832,12 +852,12 @@ def hash_engine_checks(rng, fq: str, small_fq: str, card: str) -> int:
     for engine in ("sort", "hash"):
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
-        extract_cuda.LAUNCHES = 0
+        before = _launches()
         t0 = time.perf_counter()
         maps[engine] = count_kmers_device([fq], MAIN_K, device=dev,
                                           engine=engine)
         secs.setdefault(engine, []).append(time.perf_counter() - t0)
-        launches[engine] = extract_cuda.LAUNCHES
+        launches[engine] = _launches() - before
         say("device-bfs", f"count_kmers_device(engine={engine!r}) on the "
                           f"slice's reads: {len(maps[engine])} distinct "
                           f"{MAIN_K}-mers in {secs[engine][-1]:.3f} s, "
@@ -1987,7 +2007,6 @@ def phase_sharded(rng, fq: str, small_fq: str, tmp: str, card: str) -> dict:
     import torch.distributed as dist
     from metacherchant_tpu_torch.counting import (count_kmers_device,
                                                   count_kmers_host)
-    from metacherchant_tpu_torch.ops import extract_cuda
     from metacherchant_tpu_torch.parallel.distributed import (
         initialize_distributed)
     dev = torch.device("cuda")
@@ -2002,13 +2021,13 @@ def phase_sharded(rng, fq: str, small_fq: str, tmp: str, card: str) -> dict:
             for engine in ("sort", "sharded"):
                 gc.collect()
                 torch.cuda.reset_peak_memory_stats()
-                extract_cuda.LAUNCHES = 0
+                before = _launches()
                 t0 = time.perf_counter()
                 with CollectiveCalls() as coll:
                     maps[engine] = count_kmers_device(
                         [fq], k, hasher, device=dev, engine=engine)
                 secs = time.perf_counter() - t0
-                launches[(engine, k)] = extract_cuda.LAUNCHES
+                launches[(engine, k)] = _launches() - before
                 say("sharded", f"count_kmers_device(engine={engine!r}) k={k} "
                                f"on the slice's reads: {len(maps[engine])} "
                                f"distinct keys in {secs:.3f} s, kernel "
@@ -2199,7 +2218,7 @@ def phase_count_engines(fq: str, genes: str, tmp: str, card: str) -> dict:
     launches by path, the chunk launch's record and the consolidations'
     device ms."""
     from metacherchant_tpu_torch.counting import count_kmers_device
-    from metacherchant_tpu_torch.ops import extract_cuda, sortcount
+    from metacherchant_tpu_torch.ops import sortcount
     dev = torch.device("cuda")
     launches, maps = {}, {}
     chunk_calls = []
@@ -2226,13 +2245,13 @@ def phase_count_engines(fq: str, genes: str, tmp: str, card: str) -> dict:
                 if label in ("sort2", "shift"):
                     stack.enter_context(sort2_at_any_size())
                 routes = stack.enter_context(ConsolidationRoutes())
-                extract_cuda.LAUNCHES = 0
+                before = _launches()
                 t0 = time.perf_counter()
                 got = count_kmers_device([fq], k, hasher, device=dev,
                                          engine=engine)
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
-                launches[label, k] = extract_cuda.LAUNCHES
+                launches[label, k] = _launches() - before
         finally:
             os.environ.pop("MC_SORT_COMPACTION", None)
             sortcount.append_ragged = append

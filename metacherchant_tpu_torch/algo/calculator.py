@@ -10,6 +10,7 @@ from __future__ import annotations
 import logging
 import os
 
+from .. import trace
 from ..kmer_map import KmerMap
 from .environment import build_environment, Environment
 from .contraction import (build_node_graph, do_merge, gene_kmer_checker,
@@ -28,6 +29,7 @@ def shorten_label(label: str, k: int) -> str:
     return label
 
 
+@trace.traced("env.gene")
 def run_one_sequence(sequences: list[str], k: int, kmap: KmerMap,
                      min_occ: int, output_prefix: str,
                      both_directions: bool, chunk_length: int,
@@ -79,14 +81,19 @@ def create_picture(subgraph: dict[str, int], gene_sequences: list[str], k: int,
     sweep, but seqs.fasta/graph.gfa/tsv record ORDER and per-unitig strand
     choice may differ; its files are byte-identical to the JAX package's
     device route. MC_DEVICE_CONTRACT=0 keeps the host sweep at any size."""
-    kmer_list = sorted(subgraph)
-    is_gene = gene_kmer_checker(gene_sequences, k)
-    if use_device_contraction(len(kmer_list), k):
-        from ..ops.contraction_device import contract_device
-        nodes = contract_device(kmer_list, k, tag_of=is_gene)
-    else:
-        nodes = build_node_graph(kmer_list, k, is_gene=is_gene)
-        do_merge(nodes, k)
-    write_seqs_fasta(os.path.join(output_prefix, "seqs.fasta"), nodes, chunk_length)
-    write_gfa(os.path.join(output_prefix, "graph.gfa"), nodes, k, subgraph)
-    write_tsvs(os.path.join(output_prefix, "tsvs"), nodes, k)
+    with trace.span("picture", kmers=len(subgraph)):
+        kmer_list = sorted(subgraph)
+        is_gene = gene_kmer_checker(gene_sequences, k)
+        with trace.span("picture.contract") as sp:
+            if use_device_contraction(len(kmer_list), k):
+                from ..ops.contraction_device import contract_device
+                nodes = contract_device(kmer_list, k, tag_of=is_gene)
+            else:
+                nodes = build_node_graph(kmer_list, k, is_gene=is_gene)
+                do_merge(nodes, k)
+            sp.set(nodes=len(nodes))
+        write_seqs_fasta(os.path.join(output_prefix, "seqs.fasta"), nodes,
+                         chunk_length)
+        write_gfa(os.path.join(output_prefix, "graph.gfa"), nodes, k,
+                  subgraph)
+        write_tsvs(os.path.join(output_prefix, "tsvs"), nodes, k)

@@ -35,11 +35,11 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
 
+from .. import trace
 from ..kmer_map import KmerMap
 from ..dna import revcomp_codes_np
 
@@ -307,17 +307,20 @@ def seed_codes_of_sequences(seqs: list[str], k: int, kmap: KmerMap,
     from ..dna import kmer_to_code, CHAR_TO_CODE
     out: list[int] = []
     mask = (1 << (2 * k)) - 1
-    for seq in seqs:
-        if len(seq) < k:
-            continue
-        code = kmer_to_code(seq[:k])
-        codes = [code]
-        for i in range(1, len(seq) - k + 1):
-            code = ((code << 2) | int(CHAR_TO_CODE[ord(seq[i + k - 1])])) & mask
-            codes.append(code)
-        arr = np.array(codes, np.int64)
-        occ = kmap.get_many(canonical_codes(arr, k))
-        out.extend(arr[occ >= min_occ].tolist())
+    with trace.span("env.seed") as sp:
+        for seq in seqs:
+            if len(seq) < k:
+                continue
+            code = kmer_to_code(seq[:k])
+            codes = [code]
+            for i in range(1, len(seq) - k + 1):
+                code = ((code << 2)
+                        | int(CHAR_TO_CODE[ord(seq[i + k - 1])])) & mask
+                codes.append(code)
+            arr = np.array(codes, np.int64)
+            occ = kmap.get_many(canonical_codes(arr, k))
+            out.extend(arr[occ >= min_occ].tolist())
+        sp.set(seeds=len(out))
     return out
 
 
@@ -333,7 +336,6 @@ def build_environment(sequences: list[str], k: int, kmap: KmerMap,
     seeds = seed_codes_of_sequences(
         list(sequences) + list(hic_sequences or []), k, kmap, min_occ)
     dirs = [0] if both_directions else [-1, 1]
-    visited_union = np.empty(0, np.int64)
     fail = True
     use_device = bool(seeds) and route_device_bfs(len(seeds), max_radius,
                                                   max_kmers, trim)
@@ -346,41 +348,49 @@ def build_environment(sequences: list[str], k: int, kmap: KmerMap,
             # caches its adjacency per map and device instead)
             from ..ops.hashtable import DeviceHashTable
             table = DeviceHashTable.from_kmer_map(kmap, dev)
+    if not use_device:
+        from .. import native
+        engine = "native" if seeds and native.bfs_available() else "python"
+    else:
+        engine = "probe" if probe else "dense"
+    visited: list[np.ndarray] = []
     for direction in dirs:
-        t0 = time.perf_counter()
-        if not use_device:
-            res = bfs_fifo(seeds, kmap, k, min_occ, direction,
-                           max_radius, max_kmers, collect_last=trim)
-            engine = "host FIFO"
-        else:
-            # radius-only termination: the device engines give the FIFO's
-            # visited set; no lastKmers (trim stays on the host)
-            sarr = np.array(seeds, np.int64)
-            if probe:
-                from ..ops.bfs_device import run_device_bfs
-                vis = run_device_bfs(sarr, table, k, min_occ, direction,
-                                     max_radius, device=dev)
-                engine = "probe device"
+        with trace.span("bfs.direction", engine=engine, direction=direction,
+                        map_keys=len(kmap)) as sp:
+            if not use_device:
+                res = bfs_fifo(seeds, kmap, k, min_occ, direction,
+                               max_radius, max_kmers, collect_last=trim)
             else:
-                from ..ops.bfs_dense import run_dense_bfs
-                vis = run_dense_bfs(sarr, kmap, k, min_occ, direction,
-                                    max_radius, device=dev)
-                engine = "dense device"
-            res = BfsResult(vis, np.empty(0, np.int64))
+                # radius-only termination: the device engines give the
+                # FIFO's visited set; no lastKmers (trim stays on the host)
+                sarr = np.array(seeds, np.int64)
+                if probe:
+                    from ..ops.bfs_device import run_device_bfs
+                    vis = run_device_bfs(sarr, table, k, min_occ, direction,
+                                         max_radius, device=dev)
+                else:
+                    from ..ops.bfs_dense import run_dense_bfs
+                    vis = run_dense_bfs(sarr, kmap, k, min_occ, direction,
+                                        max_radius, device=dev)
+                res = BfsResult(vis, np.empty(0, np.int64))
+            sp.set(visited=res.visited.size)
         if res.fail:
             continue
-        logger.debug("%s BFS, direction %d: %d visited in %.3f s", engine,
-                     direction, res.visited.size, time.perf_counter() - t0)
         fail = False
         vis = res.visited
         if trim:
             vis = trim_paths(vis, res.last_kmers, k, direction)
-        visited_union = np.union1d(visited_union, vis)
+        visited.append(vis)
     if fail:
         return Environment(k, np.empty(0, np.int64), np.empty(0, np.int32), fail=True)
 
-    norm = np.unique(ascii_min_orient(visited_union, k))
-    counts = kmap.get_many(canonical_codes(norm, k))
+    with trace.span("env.normalize") as sp:
+        visited_union = np.empty(0, np.int64)
+        for vis in visited:
+            visited_union = np.union1d(visited_union, vis)
+        norm = np.unique(ascii_min_orient(visited_union, k))
+        counts = kmap.get_many(canonical_codes(norm, k))
+        sp.set(kmers=norm.size)
     env = Environment(k, norm, counts.astype(np.int32))
     env.extend_count = _extend_environment_count(env, kmap, min_occ)
     return env
@@ -394,19 +404,21 @@ def _extend_environment_count(env: Environment, kmap: KmerMap,
     (OneSequenceCalculator.extendEnvironment:265-295)."""
     if env.codes.size == 0:
         return 0
-    cand = neighbors_codes(env.codes, env.k, 0)           # (S, 8)
-    canon = canonical_codes(cand, env.k)
-    # one probe-table pass for coverage, then env membership ONLY where the
-    # coverage filter passed (env ⊆ map, so in-env implies covered): a
-    # sorted-array search over the filtered subset replaces round 4's
-    # second full probe-table build+pass (~60 ms of the wiki metric)
-    occs = kmap.get_many(canon)
-    covered = occs >= min_occ
-    env_canon = np.sort(canonical_codes(env.codes, env.k))
-    q = canon[covered]
-    pos = np.searchsorted(env_canon, q)
-    pos = np.minimum(pos, env_canon.size - 1)
-    in_sub_cov = env_canon[pos] == q
-    outside = np.zeros(canon.shape, bool)
-    outside[covered] = ~in_sub_cov
-    return int((outside.sum(axis=1) == 1).sum())
+    with trace.span("env.extend", kmers=env.codes.size):
+        cand = neighbors_codes(env.codes, env.k, 0)           # (S, 8)
+        canon = canonical_codes(cand, env.k)
+        # one probe-table pass for coverage, then env membership ONLY where
+        # the coverage filter passed (env ⊆ map, so in-env implies
+        # covered): a sorted-array search over the filtered subset replaces
+        # round 4's second full probe-table build+pass (~60 ms of the wiki
+        # metric)
+        occs = kmap.get_many(canon)
+        covered = occs >= min_occ
+        env_canon = np.sort(canonical_codes(env.codes, env.k))
+        q = canon[covered]
+        pos = np.searchsorted(env_canon, q)
+        pos = np.minimum(pos, env_canon.size - 1)
+        in_sub_cov = env_canon[pos] == q
+        outside = np.zeros(canon.shape, bool)
+        outside[covered] = ~in_sub_cov
+        return int((outside.sum(axis=1) == 1).sum())

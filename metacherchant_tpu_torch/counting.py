@@ -26,6 +26,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from . import trace
 from .dna import canonical_code, kmer_to_code, encode, split_on_n, CHAR_TO_CODE
 from .io.readers import iter_reads_split
 from .kmer_map import KmerMap
@@ -84,14 +85,17 @@ def _native_chunks(path: str, k: int, min_len: int, max_len: int
     qoffset = 33
     if fmt.split(".")[0] == "fastq":
         qoffset = 33 if determine_quality_format(path) == "sanger" else 64
-    try:
-        codes, offs = native.parse_fragments(path, fmt, qoffset)
-    except native.NativeIOError as e:
-        if "Invalid nucleotide" in str(e):
-            from .io.readers import SequenceError
-            raise SequenceError(str(e)) from None
-        return None
-    return (codes, *_chunk_table(offs, k, min_len, max_len))
+    with trace.span("count.parse", bytes=os.path.getsize(path)) as sp:
+        try:
+            codes, offs = native.parse_fragments(path, fmt, qoffset)
+        except native.NativeIOError as e:
+            if "Invalid nucleotide" in str(e):
+                from .io.readers import SequenceError
+                raise SequenceError(str(e)) from None
+            return None
+        cstart, clen = _chunk_table(offs, k, min_len, max_len)
+        sp.set(fragments=offs.size - 1, chunks=cstart.size)
+    return codes, cstart, clen
 
 
 def _chunk_table(offs: np.ndarray, k: int, min_len: int, max_len: int
@@ -142,16 +146,24 @@ def _ragged_tables(chunks: tuple[np.ndarray, np.ndarray, np.ndarray],
                int(cl.sum()) - cl.size * (k - 1))
 
 
-def _ragged_launches(chunks: tuple[np.ndarray, np.ndarray, np.ndarray],
-                     batch: int, k: int, device: torch.device
-                     ) -> Iterator[tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor, torch.Tensor, int]]:
-    """The launches of _ragged_tables on `device`: (codes, starts, lens,
-    offs, windows)."""
-    for codes, table, n in _ragged_tables(chunks, batch, k):
+def _to_device(launch: np.ndarray | tuple, k: int, device: torch.device,
+               sp=trace.NO_SPAN) -> torch.Tensor | tuple:
+    """One launch of _launches on `device`: a (B, L) int8 batch, or the
+    ragged (codes, starts, lens, offs, windows). Its windows and the bytes
+    it copies go to the span `sp`."""
+    if isinstance(launch, np.ndarray):
+        nbytes = launch.nbytes
+        windows = launch.shape[0] * max(launch.shape[1] - k + 1, 0)
+        out = torch.from_numpy(launch).to(device)
+    else:
+        codes, table, windows = launch
+        nbytes = codes.nbytes + table.nbytes
         t = torch.from_numpy(table).to(device)
         starts, offs, lens = t[0], t[1], t[2].to(torch.int32)
-        yield torch.from_numpy(codes).to(device), starts, lens, offs, n
+        out = (torch.from_numpy(codes).to(device), starts, lens, offs,
+               windows)
+    sp.set(windows=windows, h2d_bytes=nbytes)
+    return out
 
 
 def _sort_geometry(table_log2: int, batch: int, max_len: int
@@ -173,12 +185,11 @@ def _sort_geometry(table_log2: int, batch: int, max_len: int
 
 
 def _launches(files: list[str], k: int, hasher: str | None, min_len: int,
-              batch: int, max_len: int, device: torch.device | None
-              ) -> Iterator[np.ndarray | tuple]:
-    """The launches of counting, file by file: exact keys with the native
-    parser as ragged launches of `batch` chunks, (codes, starts, lens, offs,
-    windows) on `device`, or (codes, table, windows) on the host when
-    device is None; else (batch, max_len) int8 numpy batches."""
+              batch: int, max_len: int) -> Iterator[np.ndarray | tuple]:
+    """The launches of counting on the host, file by file: exact keys with
+    the native parser as ragged launches of `batch` chunks, (codes, table,
+    windows); else (batch, max_len) int8 numpy batches. _to_device moves
+    one to the device."""
     from .progress import Progress
     total_bytes = sum(os.path.getsize(f) for f in files
                       if os.path.exists(f)) or None
@@ -197,9 +208,7 @@ def _launches(files: list[str], k: int, hasher: str | None, min_len: int,
         if chunks is not None:
             yield from flush()  # keep batches file-aligned on the native path
             if hasher is None:
-                for launch in (_ragged_tables(chunks, batch, k)
-                               if device is None else
-                               _ragged_launches(chunks, batch, k, device)):
+                for launch in _ragged_tables(chunks, batch, k):
                     yield launch
                     progress.update(batch)
             else:
@@ -235,19 +244,30 @@ def _count_sharded(files: list[str], k: int, hasher: str | None,
     per_shard = max(table_log2 - int(np.log2(n)) + 1, 12)
     counter = ShardedCounter(k, hasher, capacity_log2_per_shard=per_shard,
                              batch=batch, max_len=max_len, device=device)
-    launches = _launches(files, k, hasher, min_len, batch // n, max_len,
-                         device)
+    launches = _launches(files, k, hasher, min_len, batch // n, max_len)
     while True:
         launch = next(launches, None)
         if not _all_reduce([launch is not None], device=device)[0]:
             break
         if launch is None:
             counter.add_empty(batch // n)
-        elif isinstance(launch, np.ndarray):
-            counter.add_codes(torch.from_numpy(launch).to(device))
-        else:
-            counter.add_ragged(*launch)
-    return counter.items_host()
+            continue
+        with trace.span("count.launch") as sp:
+            launch = _to_device(launch, k, device, sp)
+            if isinstance(launch, torch.Tensor):
+                counter.add_codes(launch)
+            else:
+                counter.add_ragged(*launch)
+    return _finalize(counter.items_host)
+
+
+def _finalize(finish) -> tuple[np.ndarray, np.ndarray]:
+    """An engine's finish() (the map's keys and counts on the host) as the
+    span count.finalize."""
+    with trace.span("count.finalize") as sp:
+        keys, counts = finish()
+        sp.set(keys=keys.size, d2h_bytes=keys.nbytes + counts.nbytes)
+    return keys, counts
 
 
 def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
@@ -313,15 +333,16 @@ def _count_local(files: list[str], k: int, hasher: str | None, min_len: int,
                        StreamCounter(device, **caps))
         add_codes, add_ragged = counter.add_codes, counter.add_ragged
         finish = counter.finalize
-    on_host = engine == "chunk"
-    for launch in _launches(files, k, hasher, min_len, batch, max_len,
-                            None if on_host else device):
-        if isinstance(launch, np.ndarray):
-            add_codes(launch if on_host else
-                      torch.from_numpy(launch).to(device), k, hasher)
-        else:
-            add_ragged(*launch, k)
-    return finish()
+    on_host = engine == "chunk"  # the chunk engine spans its own launches
+    for launch in _launches(files, k, hasher, min_len, batch, max_len):
+        with trace.NO_SPAN if on_host else trace.span("count.launch") as sp:
+            if not on_host:
+                launch = _to_device(launch, k, device, sp)
+            if isinstance(launch, (np.ndarray, torch.Tensor)):
+                add_codes(launch, k, hasher)
+            else:
+                add_ragged(*launch, k)
+    return _finalize(finish)
 
 
 def count_kmers(files: Iterable[str], k: int, hasher: str | None = None,
@@ -329,9 +350,15 @@ def count_kmers(files: Iterable[str], k: int, hasher: str | None = None,
     """The tools' counting: count_kmers_host when the user sets
     MC_HOST_COUNT (any non-empty value, read on every call, as the JAX
     tools read it), else count_kmers_device on `device`."""
-    if os.environ.get("MC_HOST_COUNT"):
-        return count_kmers_host(files, k, hasher, min_len)
-    return count_kmers_device(files, k, hasher, min_len, device=device)
+    files = [str(f) for f in files]
+    host = bool(os.environ.get("MC_HOST_COUNT"))
+    with trace.span("count", engine="host" if host else
+                    os.environ.get("MC_COUNT_ENGINE", "sort"),
+                    bytes=sum(os.path.getsize(f) for f in files
+                              if os.path.exists(f))):
+        if host:
+            return count_kmers_host(files, k, hasher, min_len)
+        return count_kmers_device(files, k, hasher, min_len, device=device)
 
 
 def count_kmers_host(files: Iterable[str], k: int, hasher: str | None = None,

@@ -16,6 +16,7 @@ from typing import Iterable
 
 import numpy as np
 
+from .. import trace
 from ..dna import normalize
 from ..algo.contraction import Node
 
@@ -26,10 +27,19 @@ def _ensure_dir(path: str) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
 
 
+def _wrote(*paths: str) -> None:
+    """The bytes of the files just written go to the innermost open span,
+    while a recording is open."""
+    sp = trace.current()
+    if sp is not trace.NO_SPAN:
+        sp.set(bytes=sum(os.path.getsize(p) for p in paths))
+
+
 # ---------------------------------------------------------------------------
 # graph.txt (a.k.a. env.txt)
 # ---------------------------------------------------------------------------
 
+@trace.traced("write.graph_txt")
 def write_graph_txt(path: str, env_dict: dict[str, int]) -> None:
     """'kmer count' lines (OneSequenceCalculator.printEnvironment:297-310).
     Reference order is HashMap order; we emit sorted for determinism."""
@@ -37,6 +47,7 @@ def write_graph_txt(path: str, env_dict: dict[str, int]) -> None:
     with open(path, "w") as out:
         for kmer in sorted(env_dict):
             out.write(f"{kmer} {env_dict[kmer]}\n")
+    _wrote(path)
 
 
 _POW10 = 10 ** np.arange(19, dtype=np.int64)  # int64 holds < 10^19
@@ -53,6 +64,7 @@ def _digits(nums: np.ndarray) -> np.ndarray:
     ).astype(np.int64)
 
 
+@trace.traced("write.graph_txt")
 def write_graph_txt_codes(path: str, codes: np.ndarray, counts: np.ndarray,
                           k: int) -> None:
     """Vectorized write_graph_txt straight from oriented k-mer codes:
@@ -92,6 +104,7 @@ def write_graph_txt_codes(path: str, codes: np.ndarray, counts: np.ndarray,
     out[off + k + 1 + d] = ord("\n")
     with open(path, "wb") as fh:
         fh.write(out.tobytes())
+    _wrote(path)
 
 
 def load_graph_txt(path: str) -> dict[str, int]:
@@ -126,6 +139,7 @@ def _neighbor_ids(node: Node) -> list[int]:
     return sorted(ids)
 
 
+@trace.traced("write.seqs_fasta")
 def write_seqs_fasta(path: str, nodes: list[Node], chunk_length: int) -> None:
     """outputNodeSequences (OneSequenceCalculator.java:354-373): alive nodes
     with id < rc.id and length >= chunkLength."""
@@ -138,6 +152,7 @@ def write_seqs_fasta(path: str, nodes: list[Node], chunk_length: int) -> None:
             out.write(f"> Id{_node_label(n)} Length:{len(n.seq)} "
                       f"Neighbors:[{', '.join(map(str, ids))}]\n")
             out.write(n.seq + "\n")
+    _wrote(path)
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +169,7 @@ def _node_coverage(node: Node, k: int, subgraph: dict[str, int]) -> int:
     return cov
 
 
+@trace.traced("write.gfa")
 def write_gfa(path: str, nodes: list[Node], k: int,
               subgraph: dict[str, int], color_tag: str = "CL") -> None:
     """GFAWriter.printGraph (src/io/writers/GFAWriter.java:47-99):
@@ -177,12 +193,14 @@ def write_gfa(path: str, nodes: list[Node], k: int,
                 sign_b = "+" if m.seq <= m.rc.seq else "-"
                 out.write(f"L\t{_node_label(n)}\t{sign_a}\t{_node_label(m)}"
                           f"\t{sign_b}\t{k - 1}M\n")
+    _wrote(path)
 
 
 # ---------------------------------------------------------------------------
 # TSV (Cytoscape)
 # ---------------------------------------------------------------------------
 
+@trace.traced("write.tsvs")
 def write_tsvs(outdir: str, nodes: list[Node], k: int) -> None:
     """TSVWriter (src/io/writers/TSVWriter.java:27-87): nodes.tsv uses the
     node's OWN index+1 as id (:51-55); edges.tsv rows are
@@ -208,6 +226,8 @@ def write_tsvs(outdir: str, nodes: list[Node], k: int) -> None:
             for m in n.neighbors:
                 if not m.deleted:
                     out.write(f"{signed_id(n.rc)}\t{signed_id(m)}\tpp\n")
+    _wrote(os.path.join(outdir, "nodes.tsv"),
+           os.path.join(outdir, "edges.tsv"))
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +259,7 @@ def write_kmers_bin(path: str, stat_path: str, keys: np.ndarray,
         for f, n in zip(freqs.tolist(), nums.tolist()):
             out.write(f"{f}\t{n}\n")
         out.write("\n")
+    _wrote(path, stat_path)
     return int(gk.size)
 
 

@@ -19,6 +19,8 @@ import threading
 import numpy as np
 import torch
 
+from . import trace
+
 SATURATION = 32767
 
 
@@ -83,6 +85,12 @@ class KmerMap:
         cached = getattr(self, "_ptable", None)
         if cached is not None:
             return cached
+        trace.count("tables.probe")
+        with trace.span("kmap.probe_table", map_keys=self.keys.size):
+            self._ptable = self._build_probe_table()
+        return self._ptable
+
+    def _build_probe_table(self):
         n = self.keys.size
         cap = 1 << max(int(np.ceil(np.log2(n / self._PROBE_LOAD + 1))), 4)
         mask = np.uint64(cap - 1)
@@ -104,8 +112,7 @@ class KmerMap:
             placed[winners] = True
             pending = pending[~placed[pending]]
             slot[pending] = (slot[pending] + 1) & np.int64(cap - 1)
-        self._ptable = (tkeys, tcnts, np.int64(cap - 1))
-        return self._ptable
+        return tkeys, tcnts, np.int64(cap - 1)
 
     def get_many(self, query: np.ndarray) -> np.ndarray:
         """Vectorized count lookup; absent -> -1 (Long2ShortHashMap.get

@@ -26,6 +26,8 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import trace
+
 _REPO = Path(__file__).resolve().parents[2]
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 #: where the port writes every library it builds (listed in .gitignore)
@@ -206,10 +208,12 @@ def bfs_exact(map_keys: np.ndarray, map_counts: np.ndarray,
               seeds: np.ndarray, k: int, min_occ: int, direction: int,
               max_radius: int | None, max_kmers: int | None,
               collect_last: bool) -> tuple[np.ndarray, np.ndarray]:
-    """Native FIFO BFS, exact regime. Returns (visited, last) sorted codes."""
+    """Native FIFO BFS, exact regime. Returns (visited, last) sorted codes.
+    Each call builds a table of the whole map (counter tables.fifo)."""
     lib = _bfs()
     if lib is None:
         raise NativeIOError("native bfs unavailable")
+    trace.count("tables.fifo")
     map_keys = np.ascontiguousarray(map_keys, np.int64)
     map_counts = np.ascontiguousarray(map_counts, np.int32)
     seeds = np.ascontiguousarray(seeds, np.int64)
@@ -244,10 +248,12 @@ def bfs_hashed(map_keys: np.ndarray, map_counts: np.ndarray,
                max_radius: int | None, max_kmers: int | None, hasher: str,
                collect_last: bool) -> tuple[np.ndarray, np.ndarray]:
     """Native FIFO BFS, hashed regime. seeds: (N, k) uint8 oriented rows.
-    Returns ((nvis, k), (nlast, k)) uint8 state rows (unordered)."""
+    Returns ((nvis, k), (nlast, k)) uint8 state rows (unordered). Each call
+    builds a table of the whole map (counter tables.fifo)."""
     lib = _bfs()
     if lib is None:
         raise NativeIOError("native bfs unavailable")
+    trace.count("tables.fifo")
     map_keys = np.ascontiguousarray(map_keys, np.int64)
     map_counts = np.ascontiguousarray(map_counts, np.int32)
     seeds = np.ascontiguousarray(seeds, np.uint8)

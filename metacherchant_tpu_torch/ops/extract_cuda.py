@@ -15,9 +15,9 @@ Two entry points share the kernel:
 
 On CPU tensors each runs its plain torch version (extract_append_plain,
 extract_append_ragged_plain); on CUDA tensors it launches the kernel or
-raises. LAUNCHES counts the kernel's launches, so that a run can show its
-main path went through the kernel; it is raised under a lock, since the
-classifier launches from a thread pool and the launch releases the GIL.
+raises. Each launch of the kernel, and nothing else, adds 1 to the counter
+extract.launches (trace.py), so that a run can show its main path went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -26,18 +26,14 @@ import functools
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..native import BUILD_DIR
 from .kmers import exact_canonical_kmers
-
-#: kernel launches since the process started (or since a caller reset it)
-LAUNCHES = 0
-_launches_lock = threading.Lock()
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "extract_kmers.cu"
 _LIB = BUILD_DIR / "libextract_kmers.so"
@@ -120,12 +116,6 @@ def _check(codes: torch.Tensor, k: int, out: torch.Tensor) -> None:
         raise ValueError("codes and out must be contiguous")
 
 
-def _count_launch() -> None:
-    global LAUNCHES
-    with _launches_lock:
-        LAUNCHES += 1
-
-
 def _raise_on(err: int, entry: str) -> None:
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
@@ -159,7 +149,7 @@ def extract_append(codes: torch.Tensor, k: int, out: torch.Tensor) -> None:
         err = lib.mc_extract_append(codes.data_ptr(), out.data_ptr(), rows,
                                     length, k, stream)
     _raise_on(err, "extract_append")
-    _count_launch()
+    trace.count("extract.launches")
 
 
 def row_offsets(lens: np.ndarray, k: int) -> np.ndarray:
@@ -257,7 +247,7 @@ def _launch_ragged(codes: torch.Tensor, starts: torch.Tensor,
             lens.data_ptr(), offs.data_ptr(), starts.numel(), k,
             out.data_ptr(), out.numel(), faults.data_ptr(), stream)
     _raise_on(err, "extract_append_ragged")
-    _count_launch()
+    trace.count("extract.launches")
 
 
 def extract_append_ragged(codes: torch.Tensor, starts: torch.Tensor,

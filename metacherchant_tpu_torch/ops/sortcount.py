@@ -40,6 +40,7 @@ import os
 import numpy as np
 import torch
 
+from .. import trace
 from ..kmer_map import SATURATION
 from .bitonic import (_displacement, _half_clean, _shift_compact_stages)
 from .extract_cuda import extract_append, extract_append_ragged
@@ -340,19 +341,26 @@ class StreamCounter:
             return
         self._resolve()
         use_merge = self.uses_merge()
-        if use_merge or _shift_compaction(self.store_cap + self.buf.numel()):
-            fn = (_consolidate_merge_split if use_merge
-                  else _consolidate_full_split)
-            # the buffer goes in as the only reference: the merge route
-            # frees it before its stages run
-            keys, cnts, nd = fn(*self._padded_store(), self._take_buffer(),
-                                self.offset)
-            nd = int(nd)
-            self.store_keys, self.store_cnts = (keys[:nd].clone(),
-                                                cnts[:nd].clone())
-        else:
-            self.store_keys, self.store_cnts = consolidate(
-                self.store_keys, self.store_cnts, self.buf[:self.offset])
+        shift = _shift_compaction(self.store_cap + self.buf.numel())
+        with trace.span("count.consolidate",
+                        route=("merge_split" if use_merge else
+                               "full_split" if shift else "sort2"),
+                        store_in=self.store_keys.numel(),
+                        lanes=self.offset) as sp:
+            if use_merge or shift:
+                fn = (_consolidate_merge_split if use_merge
+                      else _consolidate_full_split)
+                # the buffer goes in as the only reference: the merge route
+                # frees it before its stages run
+                keys, cnts, nd = fn(*self._padded_store(),
+                                    self._take_buffer(), self.offset)
+                nd = int(nd)
+                self.store_keys, self.store_cnts = (keys[:nd].clone(),
+                                                    cnts[:nd].clone())
+            else:
+                self.store_keys, self.store_cnts = consolidate(
+                    self.store_keys, self.store_cnts, self.buf[:self.offset])
+            sp.set(store_out=self.store_keys.numel())
         self.offset = 0
         # keep buffer >= store so merge-route padding stays bounded
         self.buffer_cap = max(self.buffer_cap, self.store_cap)
@@ -452,9 +460,11 @@ class ChunkedStreamCounter:
             for i, b in enumerate(group):
                 chunk[i * self.batch:i * self.batch + b.shape[0],
                       :b.shape[1]] = b
-            sc.offset = append_codes(
-                sc.buf, sc.offset, torch.from_numpy(chunk).to(sc.device),
-                self._k, self._hasher)
+            with trace.span("count.launch", windows=nb * per_batch,
+                            h2d_bytes=chunk.nbytes):
+                sc.offset = append_codes(
+                    sc.buf, sc.offset, torch.from_numpy(chunk).to(sc.device),
+                    self._k, self._hasher)
 
     def add_ragged(self, codes: np.ndarray, table: np.ndarray, n: int,
                    k: int) -> None:
@@ -487,11 +497,13 @@ class ChunkedStreamCounter:
             [t + np.array([[cb], [kb], [0]]) for (_, t, _), cb, kb
              in zip(group, code_base, key_base)], axis=1)
         dev = self.sc.device
-        t = torch.from_numpy(table).to(dev)
-        codes = torch.from_numpy(np.concatenate([c for c, _, _ in group]))
-        self.sc.offset = append_ragged(
-            self.sc.buf, self.sc.offset, codes.to(dev), t[0],
-            t[2].to(torch.int32), t[1], n, self._k)
+        codes = np.concatenate([c for c, _, _ in group])
+        nbytes = table.nbytes + codes.nbytes
+        with trace.span("count.launch", windows=n, h2d_bytes=nbytes):
+            t = torch.from_numpy(table).to(dev)
+            self.sc.offset = append_ragged(
+                self.sc.buf, self.sc.offset, torch.from_numpy(codes).to(dev),
+                t[0], t[2].to(torch.int32), t[1], n, self._k)
 
     def finalize(self) -> tuple[np.ndarray, np.ndarray]:
         self._flush()

@@ -22,16 +22,19 @@ framework (itmo:utils/tool/Tool.java, Parameter.java):
 - logging to console + workDir/log + workDir/logs/log_<timestamp>
   (Tool.updateFileLoggers:666-687)
 - --profile DIR writes a torch.profiler chrome trace of the run to
-  DIR/trace.json
+  DIR/trace.json, with the port's spans (trace.py) beside the kernels
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import os
 import sys
 from dataclasses import dataclass, field
 from typing import Any, Callable
+
+from . import trace
 
 
 class ExecutionFailedException(Exception):
@@ -304,12 +307,13 @@ class Tool:
                         with open(marker, "w"):
                             pass
 
+            # a profiled run records the port's spans into its trace
             prof = self.profile_dir.get(self)
-            if prof:
-                self._run_profiled(prof, run_steps)
-            else:
+            with (self._profiled(prof) if prof
+                  else contextlib.nullcontext()), \
+                    trace.span("tool", tool=self.NAME):
                 run_steps()
-            self.clean_impl()
+                self.clean_impl()
             self._write_out_properties()
             all_done = all(
                 os.path.exists(self._step_marker(n, multi)) for n in names
@@ -339,15 +343,20 @@ class Tool:
                 f"--finish stage {finish!r} precedes --start stage {start!r}")
         return i0, i1
 
-    def _run_profiled(self, prof: str, run_steps: Callable[[], None]) -> None:
+    @contextlib.contextmanager
+    def _profiled(self, prof: str):
+        """torch.profiler and the port's span recording over the block; the
+        chrome trace goes to prof/trace.json when the block succeeds."""
         import torch
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
         self.logger.info("Profiling run to %s", prof)
-        with profile(activities=activities) as p:
-            run_steps()
+        with profile(activities=activities,
+                     experimental_config=trace.all_threads()) as p, \
+                trace.recording():
+            yield
         os.makedirs(prof, exist_ok=True)
         p.export_chrome_trace(os.path.join(prof, "trace.json"))
 

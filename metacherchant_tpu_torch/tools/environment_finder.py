@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import os
 
+from .. import trace
 from ..tool import Tool, Parameter, ExecutionFailedException, tool_device
 from ..io.readers import read_rich_fasta
 from ..counting import count_kmers
@@ -137,10 +138,12 @@ class EnvironmentFinderMain(Tool):
             else:
                 from concurrent.futures import ThreadPoolExecutor
                 with ThreadPoolExecutor(max_workers=workers) as ex:
+                    # each gene's spans name this thread's open span
                     futs = [
-                        ex.submit(run_one_sequence, [rec.seq],
-                                  output_prefix=os.path.join(out, rec.comment),
-                                  merged=False, **common)
+                        trace.submit(
+                            ex, run_one_sequence, [rec.seq],
+                            output_prefix=os.path.join(out, rec.comment),
+                            merged=False, **common)
                         for rec in records]
                     for f in futs:
                         f.result()

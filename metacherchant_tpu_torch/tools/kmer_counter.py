@@ -11,6 +11,7 @@ from __future__ import annotations
 import os
 import time
 
+from .. import trace
 from ..tool import Tool, Parameter, ExecutionFailedException, tool_device
 from ..counting import count_kmers
 from ..io.writers import write_kmers_bin
@@ -67,8 +68,10 @@ class KmersCounter(Tool):
         bin_path = os.path.join(out, base + ".kmers.bin")
         stat_path = os.path.join(out, base + ".stat.txt")
         threshold = self.max_size.get(self)
-        good = write_kmers_bin(bin_path, stat_path, kmap.keys, kmap.counts,
-                               threshold)
+        with trace.span("dump") as sp:
+            good = write_kmers_bin(bin_path, stat_path, kmap.keys,
+                                   kmap.counts, threshold)
+            sp.set(records=good)
         self.info("%d k-mers with frequency > %d dumped to %s", good,
                   threshold, bin_path)
         # sanity warnings (KmersCounter.java:108-118)

@@ -166,8 +166,8 @@ def test_ragged_chunks_consolidate_like_the_sort_engine(chunk_batches,
                               chunk_batches=chunk_batches, **caps)
     sc = StreamCounter(CPU, **caps)
     launches = list(counting._ragged_tables(chunks, batch, k))
-    for (codes, table, n), dev in zip(
-            launches, counting._ragged_launches(chunks, batch, k, CPU)):
+    for codes, table, n in launches:
+        dev = counting._to_device((codes, table, n), k, CPU)
         before = ck.sc.store_keys
         ck.add_ragged(codes, table, n, k)
         sc.add_ragged(*dev, k)

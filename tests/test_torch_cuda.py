@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from metacherchant_tpu_torch import trace
 from metacherchant_tpu_torch.algo import classify
 from metacherchant_tpu_torch.counting import (count_kmers_device,
                                               count_kmers_host)
@@ -78,9 +79,9 @@ def test_kernel_matches_plain_on_card(cuda, k):
     n = 777 * (300 - k + 1)
     got = torch.empty(n, dtype=torch.int64, device=cuda)
     want = torch.empty_like(got)
-    before = extract_cuda.LAUNCHES
+    before = trace.counter("extract.launches")
     extract_cuda.extract_append(torch.from_numpy(codes).to(cuda), k, got)
-    assert extract_cuda.LAUNCHES == before + 1
+    assert trace.counter("extract.launches") == before + 1
     extract_cuda.extract_append_plain(torch.from_numpy(codes).to(cuda), k,
                                       want)
     on_cpu = torch.empty(n, dtype=torch.int64)
@@ -178,9 +179,9 @@ def test_ragged_kernel_matches_plain_on_card(cuda, k):
             _, ds, dl, do, n = _ragged_on(cuda, codes, starts, lens, k)
             got = torch.full((n,), 7, dtype=torch.int64, device=cuda)
             want = torch.empty_like(got)
-            before = extract_cuda.LAUNCHES
+            before = trace.counter("extract.launches")
             extract_cuda.extract_append_ragged(d, ds, dl, do, k, got)
-            assert extract_cuda.LAUNCHES == before + 1
+            assert trace.counter("extract.launches") == before + 1
             extract_cuda.extract_append_ragged_plain(d, ds, dl, do, k, want)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (layout, shift)
@@ -242,7 +243,7 @@ def test_launch_count_is_exact_across_threads(cuda):
     ragged = _ragged_on(cuda, rc, rs, rl, 21)
     routs = [torch.empty(ragged[-1], dtype=torch.int64, device=cuda)
              for _ in range(8)]
-    before = extract_cuda.LAUNCHES
+    before = trace.counter("extract.launches")
 
     def work(out, rout):
         for _ in range(50):
@@ -257,7 +258,23 @@ def test_launch_count_is_exact_across_threads(cuda):
         t.join(timeout=120)
     assert not any(t.is_alive() for t in threads)
     torch.cuda.synchronize()
-    assert extract_cuda.LAUNCHES == before + 800
+    assert trace.counter("extract.launches") == before + 800
+
+
+@pytest.mark.parametrize("engine", ["sort", "merge", "chunk"])
+def test_launch_counter_equals_launch_spans_on_card(cuda, engine, tmp_path):
+    """Each count.launch span of exact counting on the card launches the
+    kernel once, so the counter extract.launches equals the spans, and the
+    spans' windows are every k-mer the map counts."""
+    path = str(tmp_path / "reads.fastq")
+    _write_fastq(path, 23)
+    with trace.recording() as rec:
+        kmap = count_kmers_device([path], 31, device=cuda, engine=engine,
+                                  batch=256, max_len=128, table_log2=10)
+    launches = [s for s in rec.spans if s.name == "count.launch"]
+    assert rec.counters["extract.launches"] == len(launches) > 0
+    assert sum(s.attrs["windows"] for s in launches) == int(
+        kmap.counts.astype(np.int64).sum())
 
 
 @pytest.mark.parametrize("k", [32, 55, 63])
@@ -304,9 +321,9 @@ def test_device_coverage_on_card_matches_host(cuda, k, hasher, tmp_path,
     counted = count_kmers_host([str(fasta)], k, hasher)
     batch = classify.ReadBatch.from_dnaqs(
         [DnaQ.from_string(r, 30) for r in reads])
-    before = extract_cuda.LAUNCHES
+    before = trace.counter("extract.launches")
     got = classify._coverage_device(batch, counted, k, hasher)
-    assert extract_cuda.LAUNCHES == before + (hasher is None)
+    assert trace.counter("extract.launches") == before + (hasher is None)
     want = classify._coverage(batch, counted, k, hasher)
     assert got.dtype == want.dtype and np.array_equal(got, want)
     assert (want > 0).any()
@@ -347,12 +364,12 @@ def test_triple_classifier_device_coverage_on_card_matches_host(
     for mode in ("", "1"):
         monkeypatch.setenv("MC_DEVICE_CLASSIFY", mode)
         out = tmp_path / f"out{mode}"
-        before = extract_cuda.LAUNCHES
+        before = trace.counter("extract.launches")
         assert port_main(["-t", "triple-reads-classifier", "-k", "21",
                           "-k2", "33", "-i", graph, "-r", r1, r2,
                           "-o", str(out),
                           "--work-dir", str(tmp_path / f"wd{mode}")]) == 0
-        launches[mode] = extract_cuda.LAUNCHES - before
+        launches[mode] = trace.counter("extract.launches") - before
         trees[mode] = {n: (out / n).read_bytes() for n in os.listdir(out)}
     assert len(trees[""]) == 9 and trees["1"] == trees[""]
     # r1 comes from the graph's genome, r2 from another one
@@ -422,9 +439,9 @@ def test_hash_engine_on_card_matches_sort(cuda, k, hasher, tmp_path,
     launches = []
     for engine in ("sort", "hash"):
         monkeypatch.setenv("MC_COUNT_ENGINE", engine)
-        before = extract_cuda.LAUNCHES
+        before = trace.counter("extract.launches")
         got = count_kmers_device([path], k, hasher, device=cuda, **geom)
-        launches.append(extract_cuda.LAUNCHES - before)
+        launches.append(trace.counter("extract.launches") - before)
         if engine == "sort":
             want = got
     assert launches[0] == launches[1]
@@ -444,10 +461,10 @@ def test_merge_and_chunk_engines_on_card_match_sort(cuda, k, hasher,
     geom = dict(batch=256, max_len=128, table_log2=10)
     maps, launches = {}, {}
     for engine in ("sort", "merge", "chunk"):
-        before = extract_cuda.LAUNCHES
+        before = trace.counter("extract.launches")
         maps[engine] = count_kmers_device([path], k, hasher, device=cuda,
                                           engine=engine, **geom)
-        launches[engine] = extract_cuda.LAUNCHES - before
+        launches[engine] = trace.counter("extract.launches") - before
     assert launches["merge"] == launches["sort"]
     assert (launches["sort"] > 0) == (hasher is None)
     assert launches["chunk"] < launches["sort"] or hasher is not None
@@ -535,10 +552,10 @@ def test_sharded_engine_on_card_matches_sort(nccl, k, hasher, tmp_path):
     geom = dict(batch=256, max_len=128, table_log2=10)
     maps, launches = {}, {}
     for engine in ("sort", "sharded"):
-        before = extract_cuda.LAUNCHES
+        before = trace.counter("extract.launches")
         maps[engine] = count_kmers_device([path], k, hasher, device=nccl,
                                           engine=engine, **geom)
-        launches[engine] = extract_cuda.LAUNCHES - before
+        launches[engine] = trace.counter("extract.launches") - before
     assert launches["sharded"] == launches["sort"]
     assert (launches["sort"] > 0) == (hasher is None)
     assert np.array_equal(maps["sharded"].keys, maps["sort"].keys)

@@ -254,7 +254,8 @@ def test_ragged_launch_tables(tmp_path, monkeypatch):
     assert np.all(np.diff(cstart) == max_len - (k - 1))
     total = 0
     for i, (dcodes, starts, lens, offs, n) in enumerate(
-            counting._ragged_launches(chunks, batch, k, CPU)):
+            counting._to_device(t, k, CPU)
+            for t in counting._ragged_tables(chunks, batch, k)):
         cs, cl = cstart[i * batch:(i + 1) * batch], clen[i * batch:
                                                          (i + 1) * batch]
         assert dcodes.numel() == int((cs + cl).max() - cs[0])

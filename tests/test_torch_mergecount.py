@@ -109,7 +109,9 @@ def test_ragged_runs_equal_jax_padded_runs():
     jmc, mc = JaxMergeCounter(**geom), MergeCounter(CPU, **geom)
     for packed, launch in zip(
             counting._packed_batches(chunks, batch, max_len),
-            counting._ragged_launches(chunks, batch, k, CPU), strict=True):
+            (counting._to_device(t, k, CPU)
+             for t in counting._ragged_tables(chunks, batch, k)),
+            strict=True):
         jmc.add_codes(jnp.asarray(packed.astype(np.int32)), k, None)
         mc.add_ragged(*launch, k)
         _assert_same_state(jmc, mc)

@@ -7,6 +7,7 @@ tools run on one small case in both packages, their workDirs compared: the
 file names (timestamped log files masked), the SUCCESS markers,
 out.properties, and in.properties with the run's root path masked.
 """
+import json
 import os
 import re
 
@@ -142,13 +143,42 @@ def test_mid_pipeline_resume(tmp_path):
     assert os.path.exists(os.path.join(wd, "SUCCESS"))
 
 
+def _annotations(path) -> list[str]:
+    """The user annotations (record_function ranges) of a chrome trace."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return [e["name"] for e in events
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+
+
 def test_profile_wraps_every_step(tmp_path):
     wd = str(tmp_path / "wd")
     t = StepTool()
     assert t.main(["-w", wd, "--profile", str(tmp_path / "prof")]) == 0
     assert t.trace == ["alpha", "beta", "gamma"]
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    assert _annotations(tmp_path / "prof" / "trace.json") == ["tool"]
     assert os.path.exists(os.path.join(wd, "SUCCESS"))
+
+
+def test_profile_trace_holds_the_port_spans(inputs, tmp_path, monkeypatch):
+    """--profile records the port's spans (trace.py) into trace.json: the
+    `tool` root and each step's spans, the gene threads' too."""
+    monkeypatch.setenv("MC_PLATFORM", "cpu")
+    prof = tmp_path / "prof"
+    assert port_main(["-t", "environment-finder", "-k", "21",
+                      "-i", inputs["reads"], "--seq", inputs["genes"],
+                      "-o", str(tmp_path / "out"), "--coverage", "3",
+                      "--maxradius", "100", "-p", "2",
+                      "--work-dir", str(tmp_path / "wd"),
+                      "--profile", str(prof)]) == 0
+    names = _annotations(prof / "trace.json")
+    assert names.count("tool") == 1
+    for name in ("count", "count.parse", "count.launch", "count.finalize"):
+        assert names.count(name) >= 1, name
+    for name in ("env.gene", "env.seed", "picture", "write.gfa"):
+        assert names.count(name) == 2, name
+    assert names.count("bfs.direction") == 4
 
 
 # ---------------------------------------------------------------------------
