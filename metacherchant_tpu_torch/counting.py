@@ -416,10 +416,13 @@ def load_present_kmer_strings(files: Iterable[str], k: int, hasher: str,
     canonical hash is present in kmap.
 
     Hashing is the host's vectorized hash_codes_np (exact Java wrap) over
-    ~1M-window blocks; presence is one probe-table lookup per block.
+    ~1M-window blocks; presence is one probe-table lookup per block, the
+    table built once before the first.
     """
     from .dna import CODE_TO_CHAR
     from .algo.environment_hashed import _normalize_rows
+
+    kmap._probe_table()
 
     out: dict[str, int] = {}
     buf: list[np.ndarray] = []

@@ -17,8 +17,8 @@
 // Hashes replicate the Java functions bit-for-bit on uint64 wraparound:
 // poly h=1; h=h*5+c (src/utils/PolynomialHash.java:19-28); fnv1a
 // h=basis; h=(h^c)*prime (src/utils/FNV1AHash.java:33-42); key = signed
-// min(fw, rc). Exactness is pinned against the Python engines in
-// tests/test_native_bfs.py.
+// min(fw, rc). Exactness is pinned against the Python engines and the
+// JAX package's native library in tests/test_torch_native_bfs.py.
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -45,31 +45,18 @@ static inline uint64_t revcomp64(uint64_t v, int k) {
     return v >> (64 - 2 * k);
 }
 
-// open-addressing int64 -> int32 count map (reads map probe side)
+// count lookup in the caller's map: a view of its sorted keys (strictly
+// increasing, KmerMap's invariant) and their counts, searched per lookup.
+// A direction walks thousands of k-mers, so a search (~1 us) beats a hash
+// table of the whole map (seconds to build at 25M keys).
 struct CountMap {
-    std::vector<int64_t> keys;
-    std::vector<int32_t> cnts;
-    std::vector<uint8_t> used;
-    uint64_t mask = 0;
+    const int64_t* keys;
+    const int32_t* cnts;
+    int64_t n;
 
-    void build(const int64_t* k, const int32_t* c, int64_t n) {
-        uint64_t cap = 16;
-        while (cap < (uint64_t)n * 2) cap <<= 1;
-        keys.assign(cap, 0); cnts.assign(cap, 0); used.assign(cap, 0);
-        mask = cap - 1;
-        for (int64_t i = 0; i < n; i++) {
-            uint64_t h = splitmix64((uint64_t)k[i]) & mask;
-            while (used[h]) h = (h + 1) & mask;
-            used[h] = 1; keys[h] = k[i]; cnts[h] = c[i];
-        }
-    }
     inline int32_t get(int64_t key) const {  // -1 if absent
-        uint64_t h = splitmix64((uint64_t)key) & mask;
-        while (used[h]) {
-            if (keys[h] == key) return cnts[h];
-            h = (h + 1) & mask;
-        }
-        return -1;
+        const int64_t* p = std::lower_bound(keys, keys + n, key);
+        return (p != keys + n && *p == key) ? cnts[p - keys] : -1;
     }
 };
 
@@ -136,8 +123,7 @@ int mc_bfs_exact(const int64_t* map_keys, const int32_t* map_cnts,
                  int64_t max_kmers, int collect_last,
                  int64_t** out_vis, int64_t* out_nvis,
                  int64_t** out_last, int64_t* out_nlast) {
-    CountMap cm;
-    cm.build(map_keys, map_cnts, map_n);
+    const CountMap cm{map_keys, map_cnts, map_n};
     VisitedExact vis;
     vis.init();
     std::vector<int64_t> queue;
@@ -295,8 +281,7 @@ int mc_bfs_hashed(const int64_t* map_keys, const int32_t* map_cnts,
                   int64_t max_kmers, int hasher_id, int collect_last,
                   uint8_t** out_vis, int64_t* out_nvis,
                   uint8_t** out_last, int64_t* out_nlast) {
-    CountMap cm;
-    cm.build(map_keys, map_cnts, map_n);
+    const CountMap cm{map_keys, map_cnts, map_n};
     std::vector<uint8_t> arena;
     arena.reserve((size_t)std::max<int64_t>(n_seeds, 1024) * k);
     VisitedHashed vis;

@@ -8,6 +8,11 @@ JAX KmerMap's (keys, counts) build an equal port KmerMap. The device half is
 a copy of the sorted arrays on a torch device, probed by torch.searchsorted
 (lookup_device; the classifier's MC_DEVICE_CLASSIFY route).
 
+Keys are strictly increasing: every producer gives them so (count_kmers,
+from_pairs, checkpoint.load, whose shards are contiguous key ranges), and
+every lookup searches them -- get_many on the host, lookup_device on the
+device, and the native FIFO (csrc/bfs.cpp) with std::lower_bound.
+
 Count semantics per the reference map (itmo:structures/map/Long2ShortHashMap.java):
 get() of an absent key -> -1 (:159-175), counts saturate at 32767
 (itmo:utils/NumUtils.java:21-26).
@@ -41,6 +46,7 @@ class KmerMap:
             np.minimum(counts, SATURATION), dtype=np.int32)
         self._device: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
         self._device_lock = threading.Lock()
+        self._table_lock = threading.Lock()  # the probe table's one build
 
     @staticmethod
     def from_pairs(keys: np.ndarray, counts: np.ndarray) -> "KmerMap":
@@ -74,7 +80,11 @@ class KmerMap:
     _PROBE_EMPTY = -2
 
     def _probe_table(self):
-        """Lazily-built host open-addressing table for bulk lookups.
+        """Host open-addressing table for bulk lookups, built once per map
+        (under a lock: threads share a map, and a thread that finds a build
+        under way waits for it). Only bulk callers build it (the classifiers
+        and load_present_kmer_strings, before their first lookup); once
+        built, get_many answers from it.
 
         np.searchsorted costs ~290 ns/query on large maps (measured round 4:
         96% of find_reads); linear-probe rounds over a lightly-loaded table
@@ -85,10 +95,13 @@ class KmerMap:
         cached = getattr(self, "_ptable", None)
         if cached is not None:
             return cached
-        trace.count("tables.probe")
-        with trace.span("kmap.probe_table", map_keys=self.keys.size):
-            self._ptable = self._build_probe_table()
-        return self._ptable
+        with self._table_lock:
+            cached = getattr(self, "_ptable", None)
+            if cached is None:
+                trace.count("tables.probe")
+                with trace.span("kmap.probe_table", map_keys=self.keys.size):
+                    cached = self._ptable = self._build_probe_table()
+        return cached
 
     def _build_probe_table(self):
         n = self.keys.size
@@ -116,12 +129,33 @@ class KmerMap:
 
     def get_many(self, query: np.ndarray) -> np.ndarray:
         """Vectorized count lookup; absent -> -1 (Long2ShortHashMap.get
-        semantics, itmo:structures/map/Long2ShortHashMap.java:159-175)."""
+        semantics, itmo:structures/map/Long2ShortHashMap.java:159-175).
+
+        Probes the table where a bulk caller has built it, and otherwise
+        searches the sorted keys: a table of the whole map costs more to
+        build than the few thousand lookups of a gene environment."""
         query = np.asarray(query, np.int64)
         if self.keys.size == 0:
             return np.full(query.shape, -1, np.int32)
         q = np.ascontiguousarray(query.ravel())
-        tkeys, tcnts, mask = self._probe_table()
+        table = getattr(self, "_ptable", None)
+        if table is None:
+            return self._search(q).reshape(query.shape)
+        return self._probe(q, *table).reshape(query.shape)
+
+    def _search(self, q: np.ndarray) -> np.ndarray:
+        """Counts of `q` by a search of the sorted keys, the queries taken
+        in sorted order (each search starts near the last one's end)."""
+        order = np.argsort(q)
+        qs = q[order]
+        pos = np.searchsorted(self.keys, qs)
+        np.minimum(pos, self.keys.size - 1, out=pos)
+        out = np.empty(q.size, np.int32)
+        out[order] = np.where(self.keys[pos] == qs, self.counts[pos], -1)
+        return out
+
+    def _probe(self, q: np.ndarray, tkeys: np.ndarray, tcnts: np.ndarray,
+               mask: np.int64) -> np.ndarray:
         out = np.full(q.size, -1, np.int32)
         slot = (_mix64_np(q.view(np.uint64)) & np.uint64(mask)).astype(
             np.int64)
@@ -137,7 +171,7 @@ class KmerMap:
             if active.size == 0:
                 break
             slot[active] = (slot[active] + 1) & mask
-        return out.reshape(query.shape)
+        return out
 
     def get(self, key: int) -> int:
         return int(self.get_many(np.array([key], np.int64))[0])

@@ -5,8 +5,9 @@
   parse of the classifier (no N-splitting);
 - bfs: the FIFO environment BFS, exact and hashed regimes.
 
-The sources are the port's own copies of the JAX package's
-(csrc/fastio.cpp and csrc/bfs.cpp, byte-equal to metacherchant_tpu/native/).
+The sources are the port's own (csrc/fastio.cpp, byte-equal to the JAX
+package's; csrc/bfs.cpp, whose count lookups search the map's sorted arrays
+where the JAX package's build a table of the whole map on each call).
 They are compiled by file path with g++ into the port's own build
 directory, never next to the sources, and loaded with the same C ABI as
 metacherchant_tpu/native/__init__.py. A missing compiler leaves the
@@ -209,11 +210,10 @@ def bfs_exact(map_keys: np.ndarray, map_counts: np.ndarray,
               max_radius: int | None, max_kmers: int | None,
               collect_last: bool) -> tuple[np.ndarray, np.ndarray]:
     """Native FIFO BFS, exact regime. Returns (visited, last) sorted codes.
-    Each call builds a table of the whole map (counter tables.fifo)."""
+    Counts are searched in the sorted `map_keys`; no table is built."""
     lib = _bfs()
     if lib is None:
         raise NativeIOError("native bfs unavailable")
-    trace.count("tables.fifo")
     map_keys = np.ascontiguousarray(map_keys, np.int64)
     map_counts = np.ascontiguousarray(map_counts, np.int32)
     seeds = np.ascontiguousarray(seeds, np.int64)
@@ -248,12 +248,11 @@ def bfs_hashed(map_keys: np.ndarray, map_counts: np.ndarray,
                max_radius: int | None, max_kmers: int | None, hasher: str,
                collect_last: bool) -> tuple[np.ndarray, np.ndarray]:
     """Native FIFO BFS, hashed regime. seeds: (N, k) uint8 oriented rows.
-    Returns ((nvis, k), (nlast, k)) uint8 state rows (unordered). Each call
-    builds a table of the whole map (counter tables.fifo)."""
+    Returns ((nvis, k), (nlast, k)) uint8 state rows (unordered). Counts are
+    searched in the sorted `map_keys`; no table is built."""
     lib = _bfs()
     if lib is None:
         raise NativeIOError("native bfs unavailable")
-    trace.count("tables.fifo")
     map_keys = np.ascontiguousarray(map_keys, np.int64)
     map_counts = np.ascontiguousarray(map_counts, np.int32)
     seeds = np.ascontiguousarray(seeds, np.uint8)

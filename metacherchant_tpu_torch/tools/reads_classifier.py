@@ -73,6 +73,18 @@ def load_classifier_graph(tool: Tool, input_files: list[str], k: int,
     return kmap, hasher
 
 
+def prepare_lookups(kmap: KmerMap) -> None:
+    """Build the lookup structure find_reads probes, before the first batch
+    (and the pool): the first mate tasks would otherwise wait on its build,
+    and a batch's million lookups pay for the map's probe table at once.
+    The device route probes only the device copy of the map, the host route
+    only the probe table."""
+    if device_classify():
+        kmap.device_arrays(tool_device())
+    else:
+        kmap._probe_table()
+
+
 def _classified_stream(files: list[str], kmap: KmerMap, k: int,
                        hasher: str | None, z: float, thr: float, corr: bool):
     """Yield (b1, b2, found1, found2) per batch pair, classification run on a
@@ -98,6 +110,7 @@ def _classified_stream(files: list[str], kmap: KmerMap, k: int,
     ncpu = os.cpu_count() or 2
     workers = int(os.environ.get("MC_CLASSIFY_THREADS",
                                  str(min(ncpu, 8) if ncpu > 2 else 1)))
+    prepare_lookups(kmap)
     it = iter_read_batch_pairs(files, CLASSIFY_BATCH)
     if workers <= 1:
         for b1, b2 in it:
@@ -110,16 +123,6 @@ def _classified_stream(files: list[str], kmap: KmerMap, k: int,
 
     def work(b):
         return find_reads(b, kmap, k, hasher, z, thr, corr)
-
-    # build the lookup structure the workers probe BEFORE the pool starts:
-    # the first two mate tasks would otherwise race its lazy build and each
-    # pay the full construction (seconds on multi-M-key maps). The device
-    # route probes only the device copy of the map, the host route only the
-    # probe table.
-    if device_classify():
-        kmap.device_arrays(tool_device())
-    else:
-        kmap.get_many(np.zeros(1, np.int64))
 
     # bounded prefetch: each mate is its own task. On a 2-core host the win
     # is mate-vs-mate parallelism (depth 0: no pair queued beyond the one

@@ -20,7 +20,8 @@ from ..algo.classify import (
 from ..io.writers import FastqWriter
 from ..progress import Progress
 from .reads_classifier import (
-    load_classifier_graph, check_reads_files, CLASSIFY_BATCH, _mix_rows)
+    load_classifier_graph, check_reads_files, prepare_lookups, CLASSIFY_BATCH,
+    _mix_rows)
 
 
 class TripleReadsClassifier(Tool):
@@ -107,6 +108,7 @@ class TripleReadsClassifier(Tool):
         # because both passes stream the files in the same order.
         self.info("Building graph with k = %d ...", k)
         kmap1, hasher1 = self._load(k, self.input_kmers_1)
+        prepare_lookups(kmap1)
         self.info("Searching for%s reads in graph...", " corrected" if corr else "")
         v1_parts_1: list[np.ndarray] = []
         v1_parts_2: list[np.ndarray] = []
@@ -126,6 +128,7 @@ class TripleReadsClassifier(Tool):
 
         self.info("Building graph with k = %d ...", k2)
         kmap2, hasher2 = self._load(k2, self.input_kmers_2)
+        prepare_lookups(kmap2)
         self.info("Searching for%s reads in graph...", " corrected" if corr else "")
 
         bins = ("found_1", "found_2", "half_found_1", "half_found_2",

@@ -81,7 +81,10 @@ def test_lookup_device_empty_map():
 def test_probe_table_with_top_bit_keys_matches_jax():
     rng, jm, tm = _top_bit_map(2, 20000)
     q = _queries(rng, tm.keys)
-    assert np.array_equal(tm.get_many(q), jm.get_many(q))
+    want = jm.get_many(q)
+    assert np.array_equal(tm.get_many(q), want)  # the sorted search
+    tm._probe_table()
+    assert np.array_equal(tm.get_many(q), want)  # the probe table
 
 
 def test_device_arrays_built_once_across_threads():
