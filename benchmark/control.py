@@ -34,12 +34,15 @@ def control_numbers(root: Path, cell: str, seed: int, jobs: int,
     c = core.load_cell(root, cell)
     tmp = tempfile.mkdtemp(prefix="mc-control-", dir=where)
     try:
-        inputs = datagen.make_inputs(c.cfg, c.mix, seed, tmp, device)
+        inputs = datagen.make_inputs(c.cfg, c.mix, seed, tmp, device,
+                                     c.inputs)
         genes = [inputs.genes_of(i + 1) for i in range(jobs)]
         ref = c.reference
         dev = torch.device(device)
-        want = ref.solve(c.cfg, inputs.reads, genes, dev)
-        got = ref.solve(c.cfg, inputs.reads, genes, dev, key_bits=key_bits)
+        files = core.hook_files(inputs)
+        want = ref.solve(c.cfg, inputs.reads, genes, dev, **files)
+        got = ref.solve(c.cfg, inputs.reads, genes, dev, key_bits=key_bits,
+                        **files)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return core.compare_all(ref, zip(want, got))

@@ -3,11 +3,15 @@
 A cell of BENCHMARK.json names a configuration (its file under configs/)
 and a traffic mix (traffic/<mix>.json). The configuration names its tool,
 whose job launcher is jobs/<tool>.py and whose plain reference is
-reference/<tool>.py; each per-layer metric is metrics/<metric>.py. So a
-cell, a configuration, a mix or a metric is added by adding files and
-entries, and this file never learns their names.
+reference/<tool>.py; a tool that needs inputs besides the community's reads
+and genes (mate files, a donor's dump) brings an input hook,
+inputs/<tool>.py, that writes them from the seed (datagen.py says how); each
+per-layer metric is metrics/<metric>.py. So a cell, a configuration, a mix,
+a tool's inputs or a metric is added by adding files and entries, and this
+file never learns their names.
 
-A run: inputs from the seed (datagen.py), one warm-up job, then the window,
+A run: inputs from the seed (datagen.py, with the tool's input hook where
+it has one), all made in set-up, one warm-up job, then the window,
 a closed loop of one client that starts whole tool jobs through the port's
 CLI entry (metacherchant_tpu_torch.runner.main, in this process) while less
 than --seconds have passed, each into fresh directories; the last job runs
@@ -32,7 +36,7 @@ import tempfile
 import threading
 import time
 import traceback
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable
 
@@ -77,6 +81,7 @@ class Cell:
     mix: dict
     launcher: object
     reference: object
+    inputs: object | None  # the tool's input hook, where it has one
     end_to_end: list[dict]
     per_layer: list[tuple[dict, object]]
 
@@ -107,6 +112,7 @@ def load_cell(root: Path, name: str) -> Cell:
     with open(bench / "traffic" / f"{w['traffic']}.json") as fh:
         mix = json.load(fh)
     tool = cfg["tool"]
+    hook = bench / "inputs" / f"{tool}.py"
     per_layer = [(m, load_file(bench / "metrics" / f"{m['name']}.py",
                                _module_name("metric", m["name"])))
                  for m in spec["per_layer"] if _applies(m, name)]
@@ -116,6 +122,8 @@ def load_cell(root: Path, name: str) -> Cell:
                          _module_name("job", tool)),
         reference=load_file(bench / "reference" / f"{tool}.py",
                             _module_name("reference", tool)),
+        inputs=(load_file(hook, _module_name("inputs", tool))
+                if hook.exists() else None),
         end_to_end=[m for m in spec["end_to_end"] if _applies(m, name)],
         per_layer=per_layer)
 
@@ -127,6 +135,7 @@ class Job:
     genes: str | None
     out_dir: str
     work_dir: str
+    files: dict[str, str] = field(default_factory=dict)  # the hook's
     ok: bool = False
     seconds: float = 0.0
     error: str = ""
@@ -200,6 +209,12 @@ def card_facts() -> dict:
         return {}
 
 
+def hook_files(inputs) -> dict:
+    """The keyword that hands a reference the input hook's files: none for
+    a tool without a hook, whose reference takes no such argument."""
+    return {"files": inputs.files} if inputs.files else {}
+
+
 def compare_all(ref, pairs) -> dict:
     """Each number of reference module `ref` summed over (expected, got)
     pairs, beside its limit."""
@@ -227,10 +242,11 @@ class Run:
 
     def _job(self, index: int, inputs) -> Job:
         """Window job `index` (-1: the warm-up), with the genes of slot
-        index + 1, in fresh directories."""
+        index + 1 and the input hook's files, in fresh directories."""
         base = os.path.join(self.scratch, "jobs", f"job{index + 1}")
         return Job(index, inputs.reads, inputs.genes_of(index + 1),
-                   os.path.join(base, "out"), os.path.join(base, "wd"))
+                   os.path.join(base, "out"), os.path.join(base, "wd"),
+                   inputs.files)
 
     def _between_jobs(self) -> None:
         import torch
@@ -262,14 +278,14 @@ class Run:
         os.makedirs(data_dir, exist_ok=True)
         t = time.perf_counter()
         inputs = datagen.make_inputs(self.cell.cfg, self.cell.mix, self.seed,
-                                     data_dir, self.device)
+                                     data_dir, self.device, self.cell.inputs)
         self.say(f"inputs from seed {self.seed} in "
                  f"{time.perf_counter() - t:.3f} s: "
                  f"{os.path.getsize(inputs.reads)} bytes of reads")
         # the warm-up: the same tool on the first quarter of the reads
         # brings every library and kernel of the path into the process
         warm = self._job(-1, inputs)
-        warm.reads = inputs.warm_reads
+        warm.reads, warm.files = inputs.warm_reads, inputs.warm_files
         self._between_jobs()
         self._run_job(warm)
         if not warm.ok:
@@ -399,7 +415,7 @@ class Run:
         import torch
         ref = self.cell.reference
         want = ref.solve(self.cell.cfg, inputs.reads, [j.genes for j in jobs],
-                         torch.device(self.device))
+                         torch.device(self.device), **hook_files(inputs))
         return compare_all(ref, [(w, ref.read_outputs(self.cell.cfg, j))
                                  for j, w in zip(jobs, want)])
 

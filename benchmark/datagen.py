@@ -1,6 +1,7 @@
 """Inputs of a cell, made from the seed: a simulated metagenome's reads as
-one FASTQ file (and their first quarter for the warm-up job), and the genes
-each job asks about.
+one FASTQ file (and their first quarter for the warm-up job), the genes
+each job asks about, and whatever else the cell's tool needs (mate files, a
+donor's dump), which the tool's input hook, inputs/<tool>.py, writes.
 
 The community follows CAMISIM's de novo design (Fritz et al., Microbiome
 7:17, 2019, as in the CAMI challenge, Sczyrba et al., Nature Methods 14:1063,
@@ -14,19 +15,36 @@ between genomes does.
 Every seed gets the same sizes: the abundances are the log-normal's
 quantiles, given to the genomes in one fixed order, and each gene's hosts
 are taken at fixed abundance ranks; the seed draws the sequences, the
-places, and which read comes from where. Everything is drawn with one
-torch.Generator on the run's device, in blocks of reads.
+places, and which read comes from where. The reads and genes are drawn
+with one torch.Generator on the run's device, in blocks of reads; an input
+hook draws from a second (below).
 
 fastq_records keeps the record layout of chip_smoke.py:207-224 (write_fastq:
 '@r<i>' with zero-padded digits, the bases, '+', quality 'I'), in torch so
 that each block is formatted on the device; sample_reads follows chip_smoke.py:226-237
-(half of the reads reverse complemented, uniform substitutions).
+(half of the reads reverse complemented, uniform substitutions), and
+sample_pairs chip_smoke.py:1058-1072 (mates from the two ends of a fragment,
+mate 2 reverse complemented, uniform substitutions).
+
+An input hook is a module with one function,
+
+    make(cfg, mix, seed, where, device, inputs) -> (files, warm_files)
+
+called once a run, in set-up, after the reads and genes are written
+(`inputs`); it returns two dicts of named paths under `where`, the window
+jobs' files and the warm-up job's, which a launcher reads as
+job.files[name] and the reference gets as solve(..., files=files). It draws
+from generator(seed, device, salt) with a salt of its own, never from the
+reads' generator, so that it cannot move the reads; make_community(cfg,
+generator(seed, device), device) gives it the genomes the reads came from,
+since the community is that generator's first draw.
 """
 from __future__ import annotations
 
 import math
 import os
-from dataclasses import dataclass
+from contextlib import ExitStack
+from dataclasses import dataclass, field
 from statistics import NormalDist
 
 import numpy as np
@@ -134,6 +152,35 @@ def sample_reads(genomes: torch.Tensor, which: torch.Tensor,
     return _substitute(reads, sub_rate, gen)
 
 
+def sample_pairs(genomes: torch.Tensor, which: torch.Tensor, read_bp: int,
+                 fragment_bp: int, sub_rate: float, gen: torch.Generator
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A pair of read_bp mates from a fragment of fragment_bp of each genome
+    of `which` at a uniform offset: mate 1 the fragment's first read_bp
+    bases, mate 2 the reverse complement of its last read_bp, each with
+    uniform substitutions."""
+    n, length = which.numel(), genomes.shape[1]
+    at = torch.randint(0, length - fragment_bp + 1, (n,), generator=gen,
+                       device=genomes.device)
+    first = (which * length + at)[:, None] + torch.arange(
+        read_bp, device=genomes.device)
+    flat = genomes.reshape(-1)
+    mate1 = flat[first]
+    mate2 = _revcomp(flat[first + (fragment_bp - read_bp)])
+    return (_substitute(mate1, sub_rate, gen),
+            _substitute(mate2, sub_rate, gen))
+
+
+def draw_sources(counts: np.ndarray, gen: torch.Generator, device
+                 ) -> torch.Tensor:
+    """The genome of each of counts.sum() reads (or pairs), counts[g] from
+    genome g, in an order drawn from gen."""
+    which = torch.repeat_interleave(
+        torch.arange(len(counts), device=device),
+        torch.from_numpy(counts).to(device))
+    return which[torch.randperm(which.numel(), generator=gen, device=device)]
+
+
 def fastq_records(codes: torch.Tensor, first: int, width: int
                   ) -> torch.Tensor:
     """(n, L) int8 codes (A=0,G=1,C=2,T=3) -> (n, record) uint8 FASTQ
@@ -157,6 +204,42 @@ def fastq_records(codes: torch.Tensor, first: int, width: int
     return rec
 
 
+def write_fastq(paths: list[str], warm_paths: list[str], total: int,
+                draw) -> None:
+    """FASTQ files of `total` records each, drawn in blocks: draw(r0, r1)
+    gives one (r1 - r0, L) code tensor per path, all written under the
+    record numbers r0..r1-1 (so mates share their numbers); the first
+    1/WARM_SHARE records of each path go to its warm path as well."""
+    if len(warm_paths) != len(paths):
+        raise ValueError("one warm path for each path")
+    n_warm = max(1, total // WARM_SHARE)
+    width = len(str(max(total - 1, 1)))
+    for p in list(paths) + list(warm_paths):
+        os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
+    with ExitStack() as stack:
+        outs = [stack.enter_context(open(p, "wb")) for p in paths]
+        warms = [stack.enter_context(open(p, "wb")) for p in warm_paths]
+        for r0 in range(0, total, BLOCK):
+            blocks = draw(r0, min(r0 + BLOCK, total))
+            for out, wout, codes in zip(outs, warms, blocks):
+                rec = fastq_records(codes, r0, width).cpu().numpy()
+                rec.tofile(out)
+                if r0 < n_warm:
+                    rec[:n_warm - r0].tofile(wout)
+
+
+def write_pairs(paths: list[str], warm_paths: list[str],
+                genomes: torch.Tensor, which: torch.Tensor, read_bp: int,
+                fragment_bp: int, sub_rate: float, gen: torch.Generator
+                ) -> None:
+    """Pairs from the genomes of `which` (sample_pairs), mate 1 to paths[0]
+    and mate 2 to paths[1] under the same record numbers, the first
+    1/WARM_SHARE of the pairs to warm_paths as well."""
+    write_fastq(paths, warm_paths, which.numel(),
+                lambda r0, r1: sample_pairs(genomes, which[r0:r1], read_bp,
+                                            fragment_bp, sub_rate, gen))
+
+
 def write_genes(path: str, genes: list[tuple[int, torch.Tensor]]) -> None:
     """A FASTA of (panel index, codes) genes, named gene<index + 1>."""
     with open(path, "w") as f:
@@ -170,6 +253,9 @@ class Inputs:
     reads: str                 # the community's reads, one FASTQ file
     warm_reads: str            # the first 1/WARM_SHARE of them
     genes: list[str | None]    # per job slot, a FASTA of its genes or None
+    # the input hook's named files: the window jobs' and the warm-up's
+    files: dict[str, str] = field(default_factory=dict)
+    warm_files: dict[str, str] = field(default_factory=dict)
 
     def genes_of(self, job: int) -> str | None:
         """The genes of job `job` (slot 0 is the warm-up's); the slots
@@ -177,50 +263,48 @@ class Inputs:
         return self.genes[job % len(self.genes)]
 
 
-def generator(seed: int, device) -> torch.Generator:
+#: Fibonacci hashing's multiplier, which spreads a salt over the seed
+_SALT_MIX = 0x9E3779B97F4A7C15
+
+
+def generator(seed: int, device, salt: int = 0) -> torch.Generator:
+    """The generator of `seed`; a nonzero salt gives a stream of its own
+    (an input hook's), apart from the reads'."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed % (1 << 63))
+    gen.manual_seed((seed + salt * _SALT_MIX) % (1 << 63))
     return gen
 
 
 def make_inputs(cfg: dict, mix: dict, seed: int, where: str,
-                device="cpu") -> Inputs:
+                device="cpu", hook=None) -> Inputs:
     """Write the reads of configuration `cfg` and the warm-up's share of
     them (under the same file name, so that a tool names its outputs alike)
     and, when the traffic mix asks for genes, one FASTA of
     mix["genes_per_job"] panel genes for each job slot, all under `where`.
     Slot j takes the panel's genes from j * genes_per_job on, wrapping, so
-    the slots cycle through the whole panel."""
+    the slots cycle through the whole panel. Then, where the tool has an
+    input hook (a module, see above), its files."""
     gen = generator(seed, device)
     com = make_community(cfg, gen, device)
-    total = int(com.reads.sum())
-    which = torch.repeat_interleave(
-        torch.arange(len(com.reads), device=device),
-        torch.from_numpy(com.reads).to(device))
-    which = which[torch.randperm(total, generator=gen, device=device)]
+    which = draw_sources(com.reads, gen, device)
     reads = os.path.join(where, "reads.fastq")
     warm = os.path.join(where, "warm", "reads.fastq")
-    os.makedirs(os.path.dirname(warm), exist_ok=True)
-    n_warm = max(1, total // WARM_SHARE)
-    width = len(str(max(total - 1, 1)))
-    with open(reads, "wb") as out, open(warm, "wb") as wout:
-        for r0 in range(0, total, BLOCK):
-            codes = sample_reads(com.genomes, which[r0:r0 + BLOCK],
-                                 cfg["read_bp"], cfg["substitution_rate"],
-                                 gen)
-            rec = fastq_records(codes, r0, width).cpu().numpy()
-            rec.tofile(out)
-            if r0 < n_warm:
-                rec[:n_warm - r0].tofile(wout)
+    write_fastq([reads], [warm], which.numel(),
+                lambda r0, r1: [sample_reads(
+                    com.genomes, which[r0:r1], cfg["read_bp"],
+                    cfg["substitution_rate"], gen)])
+    inputs = Inputs(reads, warm, [None])
     per_job = mix.get("genes_per_job", 0)
-    if not per_job:
-        return Inputs(reads, warm, [None])
-    panel = len(com.genes)
-    slots = panel // math.gcd(panel, per_job)
-    genes = []
-    for slot in range(slots):
-        pick = [(slot * per_job + t) % panel for t in range(per_job)]
-        path = os.path.join(where, f"genes_{slot}.fasta")
-        write_genes(path, [(i, com.genes[i]) for i in pick])
-        genes.append(path)
-    return Inputs(reads, warm, genes)
+    if per_job:
+        panel = len(com.genes)
+        slots = panel // math.gcd(panel, per_job)
+        inputs.genes = []
+        for slot in range(slots):
+            pick = [(slot * per_job + t) % panel for t in range(per_job)]
+            path = os.path.join(where, f"genes_{slot}.fasta")
+            write_genes(path, [(i, com.genes[i]) for i in pick])
+            inputs.genes.append(path)
+    if hook is not None:
+        inputs.files, inputs.warm_files = hook.make(cfg, mix, seed, where,
+                                                    device, inputs)
+    return inputs

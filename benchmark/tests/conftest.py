@@ -1,6 +1,6 @@
 """Fixtures of the benchmark's CPU tests: the checkout's root on sys.path,
 and a temporary copy of the benchmark with tiny cells added as files and
-entries alone."""
+entries alone, one of them a stand-in tool that brings its own inputs."""
 import json
 import shutil
 import sys
@@ -21,6 +21,13 @@ TINY = {"species": 3, "strain_species": 2, "genome_bp": 20000, "reads": 8000,
         "gene_host_ranks": [[0, 1], [1, 2], [2, 5]], "maxradius": 100}
 TINY_CELLS = {"envfinder-tiny.genes3": ("envfinder-k31", "genes3"),
               "fmt-tiny.count": ("fmt-k31", "count")}
+#: a tiny cell whose tool brings an input hook: kmer-counter over the mate
+#: files of a paired-end run (-i <mate 1> <mate 2>), on fmt-k31's
+#: community; its launcher, reference and hook are the files of standin/,
+#: copied in by name, and its configuration states the fragment
+STAND_IN = {"pairs-tiny.count": ("fmt-k31", "count")}
+STAND_IN_TOOL = {"tool": "kmer-counter-pairs", "fragment_bp": 400}
+STAND_IN_DIR = Path(__file__).resolve().parent / "standin"
 
 
 @pytest.fixture
@@ -31,12 +38,18 @@ def tiny_root(tmp_path):
     root = tmp_path / "checkout"
     shutil.copytree(ROOT / "benchmark", root / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    for path in STAND_IN_DIR.rglob("*.py"):
+        dest = root / "benchmark" / path.relative_to(STAND_IN_DIR)
+        dest.parent.mkdir(exist_ok=True)
+        shutil.copy(path, dest)
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
-    for cell, (base, traffic) in TINY_CELLS.items():
+    for cell, (base, traffic) in {**TINY_CELLS, **STAND_IN}.items():
         conf = next(c for c in spec["configs"] if c["name"] == base)
         cfg = json.loads((ROOT / conf["file"]).read_text())
         name = cell.split(".")[0]
         cfg.update({k: v for k, v in TINY.items() if k in cfg}, name=name)
+        if cell in STAND_IN:
+            cfg.update(STAND_IN_TOOL)
         path = f"benchmark/configs/{name}.json"
         (root / path).write_text(json.dumps(cfg))
         spec["configs"].append({**conf, "name": name, "file": path})

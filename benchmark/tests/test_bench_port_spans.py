@@ -170,6 +170,7 @@ def test_tiny_cell_reads_the_port_metrics_traced(tiny_root, cell):
     assert res["correct"], res["compared"]
     assert res["failed"] == 0 and res["attempted"] >= 1
     assert set(res["metrics"]) == PORT_METRICS[cell] | WRAPPER_METRICS[cell]
-    assert all(m["value"] > 0 for m in res["metrics"].values())
-    if cell.startswith("env"):  # 3 genes x 2 directions, each a FIFO table
-        assert res["metrics"]["table_builds"]["value"] >= 6
+    assert all(m["value"] > 0 for k, m in res["metrics"].items()
+               if k != "table_builds")
+    if cell.startswith("env"):  # the BFS searches the sorted map: no table
+        assert res["metrics"]["table_builds"]["value"] == 0

@@ -65,6 +65,7 @@ def test_cell_loads_by_name(cell):
     assert c.cfg["name"] == next(w["config"] for w in SPEC["workloads"]
                                  if w["name"] == cell)
     assert callable(c.launcher.argv)
+    assert c.inputs is None or callable(c.inputs.make)
     for fn in ("solve", "read_outputs", "compare"):
         assert callable(getattr(c.reference, fn))
     assert set(c.reference.LIMITS.values()) == {0}
