@@ -23,16 +23,25 @@ Semantics preserved exactly:
   4 nucleotides there, accepting if any variant passes with the HARDCODED 0.9
   breadth bound (findReadWithCorrection:101-140); 0 or >1 such positions fall
   back to the plain test
+
+Spans (trace.py): `classify.parse` (reads, bases) around one batch pair's
+native parse and packing, `classify.find` (engine, reads, windows) around
+one find_reads batch with its child `classify.coverage` (keys, lookup,
+window sums and, on the device route, their readback); counters
+`classify.reads` and `classify.found` add each batch's non-empty reads and
+found reads.
 """
 from __future__ import annotations
 
 import math
 import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import device
 from ..kmer_map import KmerMap
 from ..ops.extract_cuda import extract_append
@@ -118,25 +127,22 @@ def _empty_batch(B: int) -> ReadBatch:
 def iter_read_batch_pairs(files: list[str], batch: int):
     """Stream paired reads as ReadBatch pairs.
 
-    Fast path: whole-file native C++ parse (native.parse_reads -- whole
-    reads, NO N-splitting, iter_dnaq semantics) + vectorized (B, L)
-    packing; zero per-read Python. Falls back to the DnaQ-object reader for
-    formats the native parser does not handle (BINQ, bz2) or when
-    MC_NATIVE_IO=0. PairSource semantics as iter_dnaq_pair_batches
-    (itmo:io/sources/PairSource.java:22-57): the shorter source continues
-    against empty mates; a single file pairs every read with an empty mate.
+    Fast path: the native C++ read stream (native.ReadStream -- whole
+    reads, NO N-splitting, iter_dnaq semantics) parses each file a batch
+    at a time, and the batch is packed into (B, L) arrays with no per-read
+    Python; the host holds a few batches of a file, whatever its size.
+    Falls back to the DnaQ-object reader for formats the native parser does
+    not handle (BINQ, bz2) or when MC_NATIVE_IO=0. PairSource semantics as
+    iter_dnaq_pair_batches (itmo:io/sources/PairSource.java:22-57): the
+    shorter source continues against empty mates; a single file pairs every
+    read with an empty mate. Span `classify.parse` (reads, bases) covers
+    each batch pair's parse and packing.
     """
     from .. import native
     from ..io.readers import (detect_file_format, determine_quality_format,
                               iter_dnaq_pair_batches)
 
-    # whole-file native parse holds ~3 bytes/base (int8 codes + int16 phred)
-    # -- a small constant vs ~400+ B/read for DnaQ object lists, but still
-    # O(file); truly large files stay on the streaming DnaQ path
-    max_bytes = int(os.environ.get("MC_NATIVE_READS_MAX_BYTES",
-                                   str(2 << 30)))
-
-    def _native_parse(path):
+    def _native_stream(path):
         try:
             fmt = detect_file_format(path)
         except IOError:
@@ -144,59 +150,50 @@ def iter_read_batch_pairs(files: list[str], batch: int):
         if fmt.split(".")[0] != "fastq" or not (native.supports(fmt)
                                                 and native.available()):
             return None
-        try:
-            size = os.path.getsize(path)
-            # the cap bounds HOST MEMORY (~3 bytes/base of decoded arrays),
-            # so compare the DECOMPRESSED size: gzip files expand ~4x for
-            # FASTQ text, so divide the cap accordingly (ADVICE r4: a .gz
-            # just under the byte cap can expand to ~8-16 GiB of arrays)
-            budget = max_bytes // 4 if path.endswith(".gz") else max_bytes
-            if size > budget:
-                return None
-        except OSError:
-            return None
         qoffset = 33 if determine_quality_format(path) == "sanger" else 64
         try:
-            return native.parse_reads(path, qoffset)
+            return native.ReadStream(path, qoffset)
         except native.NativeIOError:
             return None
 
-    parsed = [_native_parse(f) for f in files[:2]]
-    if any(p is None for p in parsed):
-        for reads1, reads2 in iter_dnaq_pair_batches(files, batch):
-            yield (ReadBatch.from_dnaqs(reads1), ReadBatch.from_dnaqs(reads2))
-        return
+    streams = [_native_stream(f) for f in files[:2]]
+    try:
+        if any(s is None for s in streams):
+            for reads1, reads2 in iter_dnaq_pair_batches(files, batch):
+                yield (ReadBatch.from_dnaqs(reads1),
+                       ReadBatch.from_dnaqs(reads2))
+            return
+        while True:
+            with trace.span("classify.parse") as sp:
+                parsed = [s.next(batch) for s in streams]
+                size = max(offs.size - 1 for _, _, offs in parsed)
+                pair = [_pack_side(p, size) for p in parsed]
+                if len(pair) == 1:
+                    pair.append(_empty_batch(size))
+                sp.set(reads=size, bases=sum(c.size for c, _, _ in parsed))
+            if size == 0:
+                return
+            yield tuple(pair)
+    finally:
+        for s in streams:
+            if s is not None:
+                s.close()
 
-    if len(parsed) == 1:
-        (c1, p1, o1), = parsed
-        n1, n2 = o1.size - 1, 0
-    else:
-        (c1, p1, o1), (c2, p2, o2) = parsed
-        n1, n2 = o1.size - 1, o2.size - 1
-    n = max(n1, n2)
-    for lo in range(0, n, batch):
-        hi = min(lo + batch, n)
-        if lo < n1:
-            b1 = _pack_flat(c1, p1, o1, lo, min(hi, n1))
-            if hi > n1:  # pad exhausted side with empty mates
-                pad = _empty_batch(hi - n1)
-                b1 = ReadBatch(
-                    _pad_rows(b1.codes, pad.codes),
-                    np.concatenate([b1.lengths, pad.lengths]),
-                    _pad_rows(b1.phred, pad.phred))
-        else:
-            b1 = _empty_batch(hi - lo)
-        if n2 > lo:
-            b2 = _pack_flat(c2, p2, o2, lo, min(hi, n2))
-            if hi > n2:
-                pad = _empty_batch(hi - n2)
-                b2 = ReadBatch(
-                    _pad_rows(b2.codes, pad.codes),
-                    np.concatenate([b2.lengths, pad.lengths]),
-                    _pad_rows(b2.phred, pad.phred))
-        else:
-            b2 = _empty_batch(hi - lo)
-        yield b1, b2
+
+def _pack_side(parsed, size: int) -> ReadBatch:
+    """A mate's (codes, phred, offsets) batch packed as a ReadBatch of
+    `size` rows, empty mates past its own reads (an exhausted side)."""
+    codes, phred, offs = parsed
+    n = offs.size - 1
+    if n == 0:
+        return _empty_batch(size)
+    b = _pack_flat(codes, phred, offs, 0, n)
+    if n == size:
+        return b
+    pad = _empty_batch(size - n)
+    return ReadBatch(_pad_rows(b.codes, pad.codes),
+                     np.concatenate([b.lengths, pad.lengths]),
+                     _pad_rows(b.phred, pad.phred))
 
 
 def _pad_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -210,24 +207,33 @@ def _pad_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.concatenate([a, b])
 
 
-def _coverage_stats(cov: np.ndarray, lengths: np.ndarray, k: int):
-    """cov (B, W) with garbage beyond n_i = len_i - k + 1 windows.
-    Returns (cov_mean, width) per read; reads with len < k get 0s."""
+def _window_sums(cov: torch.Tensor, lengths: np.ndarray, k: int
+                 ) -> torch.Tensor:
+    """(3, B) int64 on cov's device from cov (B, W), whose columns past each
+    read's n_i = len_i - k + 1 windows are garbage: per read the sum of its
+    windows' counts, its windows with a count, and its last window's count
+    (garbage where n_i = 0). Both routes reduce with it: the host's counts
+    as a CPU tensor, the device's where they are."""
     B, W = cov.shape
     if W == 0:  # every read shorter than k (e.g. all-empty mate batch)
-        zeros = np.zeros(B, np.float64)
-        return zeros, zeros.copy(), np.zeros(B, bool)
-    n = np.maximum(lengths - k + 1, 0)
-    col = np.arange(W)[None, :]
-    valid = col < n[:, None]
-    covv = np.where(valid, cov, 0)
-    pos = covv > 0
-    last_idx = np.clip(n - 1, 0, max(W - 1, 0))
-    last = cov[np.arange(B), last_idx]
-    has = n > 0
+        return torch.zeros((3, B), dtype=torch.int64, device=cov.device)
+    n = torch.from_numpy(np.maximum(lengths - k + 1, 0).astype(np.int64)
+                         ).to(cov.device)
+    covv = torch.where(torch.arange(W, device=cov.device) < n[:, None],
+                       cov, 0)
+    last = cov[torch.arange(B, device=cov.device), (n - 1).clamp(0, W - 1)]
+    return torch.stack([covv.sum(1), (covv > 0).sum(1),
+                        last.to(torch.int64)])
+
+
+def _coverage_stats(sums: np.ndarray, lengths: np.ndarray, k: int):
+    """(cov_mean, width, has) per read from its window sums (_window_sums);
+    reads with len < k get 0s."""
+    total, hits, last = sums
+    has = lengths - k + 1 > 0
     lengths_f = np.maximum(lengths, 1).astype(np.float64)
-    cov_mean = (covv.sum(axis=1) + last * (k - 1)) / lengths_f
-    width = (pos.sum(axis=1) + (last > 0) * (k - 1)) / lengths_f
+    cov_mean = (total + last * (k - 1)) / lengths_f
+    width = (hits + (last > 0) * (k - 1)) / lengths_f
     return np.where(has, cov_mean, 0.0), np.where(has, width, 0.0), has
 
 
@@ -244,8 +250,8 @@ def _interval_ok(cov_mean, width, lengths, z):
 def batch_widths(batch: ReadBatch, kmap: KmerMap, k: int,
                  hasher: str | None) -> np.ndarray:
     """getWidth (TripleFinder.java:64-70): breadth only; len<k -> 0."""
-    cov = _coverage(batch, kmap, k, hasher)
-    _, width, has = _coverage_stats(cov, batch.lengths, k)
+    _, width, has = _coverage_stats(_coverage(batch, kmap, k, hasher),
+                                    batch.lengths, k)
     return np.where(has, width, 0.0)
 
 
@@ -255,43 +261,84 @@ def device_classify() -> bool:
     return os.environ.get("MC_DEVICE_CLASSIFY", "") not in ("", "0")
 
 
+def _on_device(batch: ReadBatch, k: int) -> bool:
+    """Whether the batch's coverage takes the device route."""
+    return device_classify() and batch.codes.shape[1] >= k
+
+
 def _coverage(batch: ReadBatch, kmap: KmerMap, k: int,
               hasher: str | None) -> np.ndarray:
-    if device_classify() and batch.codes.shape[1] >= k:
-        return _coverage_device(batch, kmap, k, hasher)
+    """The batch's window sums (_window_sums) of each window's count in the
+    map, 0 where absent (getWithZero)."""
+    if _on_device(batch, k):
+        # one batch on the device at a time, its tensors freed inside
+        with _device_batch:
+            cov = _window_counts_device(batch, kmap, k, hasher)
+            sums = _window_sums(cov, batch.lengths, k).cpu().numpy()
+            del cov
+        return sums
+    cov = _window_counts_host(batch, kmap, k, hasher)
+    return _window_sums(torch.from_numpy(cov), batch.lengths, k).numpy()
+
+
+def _window_counts_host(batch: ReadBatch, kmap: KmerMap, k: int,
+                        hasher: str | None) -> np.ndarray:
+    """(B, W) count in the map of each window start's canonical key, 0
+    where absent; columns past a read's windows are garbage."""
     keys = rolling_keys_np(batch.codes, k, hasher)
-    if keys.size == 0:
-        return np.zeros((batch.codes.shape[0], 0), np.int32)
-    cov = kmap.get_many(keys)
-    return np.maximum(cov, 0)  # getWithZero
+    return np.maximum(kmap.get_many(keys), 0) if keys.size else keys
 
 
-def _coverage_device(batch: ReadBatch, kmap: KmerMap, k: int,
-                     hasher: str | None) -> np.ndarray:
-    """Device coverage (SURVEY §2.3 P3): canonical keys of every window start
-    and the sorted-map probe on the device of device.py, one batch at a time.
-    Codes are N->0 and padded with 0 (=A), so every window is valid; garbage
-    windows beyond each read's length are masked later by _coverage_stats,
-    as on the host. Exact keys come from ops/extract_cuda.extract_append
-    (the CUDA kernel on a GPU), hashed keys from hash_canonical_kmers."""
-    codes = torch.from_numpy(batch.codes).to(device(), torch.int8)
+#: one batch on the device at a time: the classifier's pool would otherwise
+#: hold as many batches' keys and lookups on the card as its timing lets
+#: it, so the job's device peak would vary from run to run
+_device_batch = threading.Lock()
+
+
+def _window_counts_device(batch: ReadBatch, kmap: KmerMap, k: int,
+                          hasher: str | None) -> torch.Tensor:
+    """_window_counts_host on the device of device.py (SURVEY §2.3 P3):
+    canonical keys of every window start and the sorted-map probe, left on
+    the device. Codes are N->0 and padded with 0 (=A), so every window is
+    valid; garbage windows beyond each read's length are masked by
+    _window_sums as on the host. Exact keys come from
+    ops/extract_cuda.extract_append (the CUDA kernel on a GPU), hashed keys
+    from hash_canonical_kmers."""
+    # int32 to the card, int8 there: no host copy in the worker
+    codes = torch.from_numpy(batch.codes).to(device()).to(torch.int8)
     B, L = codes.shape
+    W = L - k + 1
     if hasher is None:
-        keys = torch.empty(B * (L - k + 1), dtype=torch.int64,
-                           device=codes.device)
+        keys = torch.empty(B * W, dtype=torch.int64, device=codes.device)
         extract_append(codes.contiguous(), k, keys)
     else:
         keys = hash_canonical_kmers(codes, k, hasher)[0][:, k - 1:]
-    cov = kmap.lookup_device(keys.reshape(-1)).reshape(B, L - k + 1)
-    return np.maximum(cov.cpu().numpy(), 0)
+    return kmap.lookup_device(keys.reshape(-1)).reshape(B, W).clamp_min(0)
 
 
 def find_reads(batch: ReadBatch, kmap: KmerMap, k: int, hasher: str | None,
                z: float, found_threshold: float,
                do_correction: bool = False) -> np.ndarray:
     """Vectorized findRead / findReadWithCorrection over a batch."""
-    cov = _coverage(batch, kmap, k, hasher)
-    cov_mean, width, has = _coverage_stats(cov, batch.lengths, k)
+    reads = int(np.count_nonzero(batch.lengths))
+    with trace.span("classify.find",
+                    engine="device" if _on_device(batch, k) else "host",
+                    reads=reads,
+                    windows=int(np.maximum(batch.lengths - k + 1, 0).sum())):
+        with trace.span("classify.coverage"):
+            sums = _coverage(batch, kmap, k, hasher)
+        found = _find(batch, sums, kmap, k, hasher, z, found_threshold,
+                      do_correction)
+    trace.count("classify.reads", reads)
+    trace.count("classify.found", int(np.count_nonzero(found)))
+    return found
+
+
+def _find(batch: ReadBatch, sums: np.ndarray, kmap: KmerMap, k: int,
+          hasher: str | None, z: float, found_threshold: float,
+          do_correction: bool) -> np.ndarray:
+    """find_reads' verdicts from the batch's window sums."""
+    cov_mean, width, has = _coverage_stats(sums, batch.lengths, k)
     ok = _interval_ok(cov_mean, width, batch.lengths, z)
     found = has & ~(width < found_threshold) & ok
     if not do_correction:

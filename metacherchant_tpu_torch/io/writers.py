@@ -234,6 +234,10 @@ def write_tsvs(outdir: str, nodes: list[Node], k: int) -> None:
 # kmers.bin + stat.txt
 # ---------------------------------------------------------------------------
 
+#: a kmers.bin record: big-endian int64 key, int16 count
+KMERS_BIN_RECORD = np.dtype([("k", ">i8"), ("c", ">i2")])
+
+
 def write_kmers_bin(path: str, stat_path: str, keys: np.ndarray,
                     counts: np.ndarray, threshold: int = 0) -> int:
     """IOUtils.printKmers (src/io/IOUtils.java:39-65): big-endian int64 key +
@@ -247,7 +251,7 @@ def write_kmers_bin(path: str, stat_path: str, keys: np.ndarray,
     good_mask = counts > threshold
     gk = keys[good_mask]
     gc = counts[good_mask].astype(np.int16)
-    rec = np.empty(gk.size, dtype=np.dtype([("k", ">i8"), ("c", ">i2")]))
+    rec = np.empty(gk.size, dtype=KMERS_BIN_RECORD)
     rec["k"] = gk
     rec["c"] = gc
     with open(path, "wb") as out:
@@ -263,14 +267,42 @@ def write_kmers_bin(path: str, stat_path: str, keys: np.ndarray,
     return int(gk.size)
 
 
+#: records that read_kmers_bin converts at a time
+KMERS_BIN_CHUNK = 1 << 18
+
+
+def iter_kmers_bin(path: str, threshold: int = 0):
+    """(keys int64, counts int32) of a dump's records with count > threshold,
+    KMERS_BIN_CHUNK records at a time, in the file's order."""
+    n = os.path.getsize(path) // KMERS_BIN_RECORD.itemsize
+    with open(path, "rb") as fh:
+        for lo in range(0, n, KMERS_BIN_CHUNK):
+            rec = np.fromfile(fh, KMERS_BIN_RECORD,
+                              count=min(KMERS_BIN_CHUNK, n - lo))
+            keys = rec["k"].astype(np.int64)
+            counts = rec["c"].astype(np.int32)
+            if counts.size and counts.min() <= threshold:
+                keep = counts > threshold
+                keys, counts = keys[keep], counts[keep]
+            yield keys, counts
+
+
 def read_kmers_bin(path: str, threshold: int = 0) -> tuple[np.ndarray, np.ndarray]:
     """Load kmers.bin records with count > threshold
-    (IOUtils.loadKmers:94-126 + KmersLoadWorker:14-32)."""
-    rec = np.fromfile(path, dtype=np.dtype([("k", ">i8"), ("c", ">i2")]))
-    keys = rec["k"].astype(np.int64)
-    counts = rec["c"].astype(np.int32)
-    keep = counts > threshold
-    return keys[keep], counts[keep]
+    (IOUtils.loadKmers:94-126 + KmersLoadWorker:14-32). iter_kmers_bin's
+    chunks go into the int64 keys and int32 counts returned, so the host
+    holds a dump once, not as records and arrays and a filtered copy of
+    them (1.2 GB at once for a dump of 33M records), and no more than a
+    chunk beside them."""
+    n = os.path.getsize(path) // KMERS_BIN_RECORD.itemsize
+    keys = np.empty(n, np.int64)
+    counts = np.empty(n, np.int32)
+    m = 0
+    for kk, cc in iter_kmers_bin(path, threshold):
+        keys[m:m + kk.size] = kk
+        counts[m:m + kk.size] = cc
+        m += kk.size
+    return keys[:m], counts[:m]
 
 
 # ---------------------------------------------------------------------------
@@ -415,13 +447,15 @@ class FastqWriter:
                 "".join(self._format(d) for d in dnaqs).encode("latin-1"))
 
     def write_batch(self, codes: np.ndarray, phred: np.ndarray,
-                    lengths: np.ndarray, idx: np.ndarray) -> None:
+                    lengths: np.ndarray, idx: np.ndarray) -> int:
         """Vectorized bin write straight from ReadBatch-style arrays: one
-        numpy blob assembly + one file write, zero per-read Python."""
+        numpy blob assembly + one file write, zero per-read Python.
+        Returns the bytes written."""
         blob = format_fastq_blob(codes, phred, lengths, idx,
                                  self._n + 1, self._offset)
         self._n += int(np.asarray(idx).size)
         self._f.write(blob)
+        return len(blob)
 
     def close(self) -> None:
         self._f.close()

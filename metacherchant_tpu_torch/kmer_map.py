@@ -44,6 +44,7 @@ class KmerMap:
         self.keys = np.ascontiguousarray(keys, dtype=np.int64)
         self.counts = np.ascontiguousarray(
             np.minimum(counts, SATURATION), dtype=np.int32)
+        self._n = self.keys.size
         self._device: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
         self._device_lock = threading.Lock()
         self._table_lock = threading.Lock()  # the probe table's one build
@@ -52,6 +53,9 @@ class KmerMap:
     def from_pairs(keys: np.ndarray, counts: np.ndarray) -> "KmerMap":
         """Build from possibly-unsorted, possibly-duplicated pairs (counts sum)."""
         keys = np.asarray(keys, np.int64)
+        if _strictly_increasing(keys):
+            # sorted and distinct, as kmer-counter dumps them: the map as is
+            return KmerMap(keys, np.asarray(counts))
         counts = np.asarray(counts, np.int64)
         order = np.argsort(keys, kind="stable")
         keys, counts = keys[order], counts[order]
@@ -63,6 +67,36 @@ class KmerMap:
         return KmerMap(keys, np.minimum(counts, SATURATION))
 
     @staticmethod
+    def from_chunks_on_device(chunks, n: int, device: torch.device
+                              ) -> "KmerMap | None":
+        """A map held on `device` alone (as after release_host), built from
+        (keys, counts) chunks whose keys are strictly increasing throughout,
+        as kmer-counter dumps them: each chunk is copied into its place on
+        the device, so the host holds one chunk, never the map. `n` bounds
+        the keys of all chunks. None as soon as a key is not above the one
+        before: such pairs are the host's to sort (from_pairs)."""
+        device = _device_key(device)
+        keys = torch.empty(n, dtype=torch.int64, device=device)
+        counts = torch.empty(n, dtype=torch.int32, device=device)
+        m, last = 0, None
+        for ck, cc in chunks:
+            if ck.size == 0:
+                continue
+            if not _strictly_increasing(ck) or (last is not None
+                                                and ck[0] <= last):
+                return None
+            last = ck[-1]
+            keys[m:m + ck.size].copy_(torch.from_numpy(ck))
+            counts[m:m + ck.size].copy_(torch.from_numpy(
+                np.minimum(cc, SATURATION).astype(np.int32)))
+            m += ck.size
+        kmap = KmerMap(np.empty(0, np.int64), np.empty(0, np.int32))
+        kmap._device[device] = (keys[:m], counts[:m])
+        kmap._n = m
+        kmap.release_host()
+        return kmap
+
+    @staticmethod
     def from_dict(d: dict[int, int]) -> "KmerMap":
         if not d:
             return KmerMap(np.empty(0, np.int64), np.empty(0, np.int32))
@@ -71,7 +105,7 @@ class KmerMap:
         return KmerMap.from_pairs(keys, counts)
 
     def __len__(self) -> int:
-        return self.keys.size
+        return self._n
 
     #: probe table load factor; probe rounds are linear, so keep it low
     _PROBE_LOAD = 0.35
@@ -204,9 +238,7 @@ class KmerMap:
                       ) -> tuple[torch.Tensor, torch.Tensor]:
         """The sorted (keys int64, counts int32) on `device`, copied once per
         device and cached (under a lock: classifier threads share a map)."""
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+        device = _device_key(device)
         with self._device_lock:
             arrays = self._device.get(device)
             if arrays is None:
@@ -215,10 +247,37 @@ class KmerMap:
                 self._device[device] = arrays
         return arrays
 
+    def release_host(self) -> None:
+        """Let go of the host arrays, for a map that is looked up only on
+        the devices it was copied to (device_arrays) from then on: the
+        classifier's device route, whose host would otherwise hold a copy
+        of what the card holds. len() still answers; a host lookup, or a
+        copy to another device, fails after this."""
+        self.keys = self.counts = None
+
     def lookup_device(self, query: torch.Tensor) -> torch.Tensor:
         """Counts of int64 `query` keys on the query's device; absent -> -1."""
         keys, counts = self.device_arrays(query.device)
         return _lookup_sorted(keys, counts, query)
+
+
+def _device_key(device) -> torch.device:
+    """`device` with the current CUDA device's index where it names none,
+    the key of a map's copies."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _strictly_increasing(keys: np.ndarray, block: int = 1 << 20) -> bool:
+    """Whether keys[i] < keys[i+1] throughout, compared a block at a time
+    (a whole-array comparison would hold a bool per key at once)."""
+    for lo in range(0, keys.size - 1, block):
+        hi = min(lo + block, keys.size - 1)
+        if not (keys[lo + 1:hi + 1] > keys[lo:hi]).all():
+            return False
+    return True
 
 
 def _lookup_sorted(keys: torch.Tensor, counts: torch.Tensor,

@@ -3,17 +3,19 @@
 - fastio: FASTA/FASTQ(.gz) parsing + 2-bit packing with the exact N-split
   semantics of the Python readers (io/readers.py), and the whole-read FASTQ
   parse of the classifier (no N-splitting);
+- readstream: that whole-read parse a batch of reads at a time (ReadStream,
+  the classifier's), holding a window of the file and not all of it;
 - bfs: the FIFO environment BFS, exact and hashed regimes.
 
 The sources are the port's own (csrc/fastio.cpp, byte-equal to the JAX
-package's; csrc/bfs.cpp, whose count lookups search the map's sorted arrays
+package's; csrc/readstream.cpp, which the JAX package lacks; csrc/bfs.cpp, whose count lookups search the map's sorted arrays
 where the JAX package's build a table of the whole map on each call).
 They are compiled by file path with g++ into the port's own build
 directory, never next to the sources, and loaded with the same C ABI as
 metacherchant_tpu/native/__init__.py. A missing compiler leaves the
 Python readers and the Python FIFO BFS in charge, as in the JAX package.
 
-MC_NATIVE_IO=0 / MC_NATIVE_BFS=0 turn either engine off; both are read on
+MC_NATIVE_IO=0 / MC_NATIVE_BFS=0 turn the readers or the BFS off; both are read on
 every call.
 """
 from __future__ import annotations
@@ -87,6 +89,29 @@ def _load_fastio():
 
 
 @functools.cache
+def _load_readstream():
+    path = _build(SRC_DIR / "readstream.cpp", "libreadstream.so", ("-lz",))
+    if path is None:
+        return None
+    lib = ctypes.CDLL(str(path))
+    lib.fastio_reads_open.restype = ctypes.c_void_p
+    lib.fastio_reads_open.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int64, ctypes.c_char_p,
+        ctypes.c_int]
+    lib.fastio_reads_next.restype = ctypes.c_int
+    lib.fastio_reads_next.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int8)),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int16)),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_char_p, ctypes.c_int]
+    lib.fastio_reads_close.restype = None
+    lib.fastio_reads_close.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+@functools.cache
 def _load_bfs():
     path = _build(SRC_DIR / "bfs.cpp", "libbfs.so")
     if path is None:
@@ -117,6 +142,13 @@ def _fastio():
         return None
     with _lock:
         return _load_fastio()
+
+
+def _readstream():
+    if os.environ.get("MC_NATIVE_IO") == "0":
+        return None
+    with _lock:
+        return _load_readstream()
 
 
 def _bfs():
@@ -203,6 +235,62 @@ def parse_reads(path: str, qoffset: int = 33
         lib.fastio_free(phred_p)
         lib.fastio_free(offs_p)
     return codes, phred, offs
+
+
+class ReadStream:
+    """Whole-read FASTQ parse, NO N-splitting (parse_reads' records), a
+    batch of reads at a time: the stream holds a window of whole lines of
+    the file (read `chunk_bytes` at a time) and the last batch, never the
+    whole file. Raises NativeIOError where the library is missing (or
+    MC_NATIVE_IO=0) or the file cannot be opened or read."""
+
+    def __init__(self, path: str, qoffset: int = 33,
+                 chunk_bytes: int = 1 << 20):
+        self._lib = _readstream()
+        if self._lib is None:
+            raise NativeIOError("native read stream unavailable")
+        errbuf = ctypes.create_string_buffer(512)
+        self._handle = self._lib.fastio_reads_open(
+            str(path).encode(), qoffset, chunk_bytes, errbuf, len(errbuf))
+        if not self._handle:
+            raise NativeIOError(errbuf.value.decode(errors="replace"))
+
+    def next(self, max_reads: int
+             ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The next (up to) max_reads reads: (codes int8 (total,), phred
+        int16 (total,), offsets int64 (n_reads+1,)); read i is
+        codes[offsets[i]:offsets[i+1]]. No reads at the end of the file."""
+        codes_p = ctypes.POINTER(ctypes.c_int8)()
+        phred_p = ctypes.POINTER(ctypes.c_int16)()
+        offs_p = ctypes.POINTER(ctypes.c_int64)()
+        n_reads = ctypes.c_int64()
+        total = ctypes.c_int64()
+        errbuf = ctypes.create_string_buffer(512)
+        rc = self._lib.fastio_reads_next(
+            self._handle, max_reads, ctypes.byref(codes_p),
+            ctypes.byref(phred_p), ctypes.byref(offs_p),
+            ctypes.byref(n_reads), ctypes.byref(total), errbuf, len(errbuf))
+        if rc != 0:
+            raise NativeIOError(errbuf.value.decode(errors="replace"))
+        n, t = n_reads.value, total.value
+        # copies: the stream reuses its buffers for the next batch
+        codes = (np.ctypeslib.as_array(codes_p, shape=(t,)).copy() if t
+                 else np.empty(0, np.int8))
+        phred = (np.ctypeslib.as_array(phred_p, shape=(t,)).copy() if t
+                 else np.empty(0, np.int16))
+        offs = np.ctypeslib.as_array(offs_p, shape=(n + 1,)).copy()
+        return codes, phred, offs
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.fastio_reads_close(self._handle)
+            self._handle = None
+
+    def __enter__(self) -> "ReadStream":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def bfs_exact(map_keys: np.ndarray, map_counts: np.ndarray,

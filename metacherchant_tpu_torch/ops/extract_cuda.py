@@ -26,6 +26,7 @@ import functools
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -76,8 +77,18 @@ ARGTYPES = {
 }
 
 
-@functools.cache
+#: threads that launch the kernel first (the classifier's pool) wait for
+#: one build: two builds of one process share a temporary file
+_library_lock = threading.Lock()
+
+
 def _library() -> ctypes.CDLL:
+    with _library_lock:
+        return _load_library()
+
+
+@functools.cache
+def _load_library() -> ctypes.CDLL:
     build()
     lib = ctypes.CDLL(str(_LIB))
     for name, argtypes in ARGTYPES.items():

@@ -6,6 +6,12 @@ into found/not-found bins with the Poisson-interval breadth test, write the
 six fastq outputs and the quality stats block. Carried over from
 metacherchant_tpu/tools/reads_classifier.py; counting runs on the device of
 device.py, and so does the coverage under MC_DEVICE_CLASSIFY.
+
+Spans (trace.py): `classify.load` (records, bytes, map keys) around the
+graph's load, the map's build and its lookup structure (under
+MC_DEVICE_CLASSIFY the device copy, after which the host lets go of the
+map's arrays), `write.bins` (bytes) around one batch pair's
+bin writes; the classification's own spans are algo/classify.py's.
 """
 from __future__ import annotations
 
@@ -13,10 +19,12 @@ import os
 
 import numpy as np
 
+from .. import trace
 from ..tool import Tool, Parameter, ExecutionFailedException, tool_device
 from ..kmer_map import KmerMap
 from ..counting import count_kmers
-from ..io.writers import read_kmers_bin, FastqWriter
+from ..io.writers import (KMERS_BIN_RECORD, FastqWriter, iter_kmers_bin,
+                          read_kmers_bin)
 from ..algo.classify import (device_classify, find_reads, FoundStats,
                              iter_read_batch_pairs)
 
@@ -48,22 +56,40 @@ def check_reads_files(files: list[str]) -> None:
 
 
 def load_classifier_graph(tool: Tool, input_files: list[str], k: int,
-                          hash_name: str) -> tuple[KmerMap, str | None]:
+                          hash_name: str, sp=trace.NO_SPAN,
+                          on_device: bool = False
+                          ) -> tuple[KmerMap, str | None]:
     """loadGraph (src/tools/ReadsClassifier.java:95-114): *kmers.bin dump or
-    raw reads; hashing regime only when k > 31 (no --forcehash here)."""
+    raw reads; hashing regime only when k > 31 (no --forcehash here). The
+    dump's records (count > 0) and bytes go to span `sp`. With `on_device`
+    a single dump in ascending key order (kmer-counter's) is built on the
+    tool's device a chunk at a time, with no map on the host."""
     hasher = None
     if k > 31:
         hasher = "fnv1a" if hash_name.lower() == "fnv1a" else "poly"
         tool.info("Using %s hash function",
                   "FNV1a" if hasher == "fnv1a" else "default polynomial")
-    if input_files and input_files[0].lower().endswith("kmers.bin"):
+    kmap = None
+    if (on_device and len(input_files) == 1
+            and input_files[0].lower().endswith("kmers.bin")):
+        size = os.path.getsize(input_files[0])
+        kmap = KmerMap.from_chunks_on_device(
+            iter_kmers_bin(input_files[0], threshold=0),
+            size // KMERS_BIN_RECORD.itemsize, tool_device())
+    if kmap is not None:
+        sp.set(records=len(kmap), bytes=size)
+    elif input_files and input_files[0].lower().endswith("kmers.bin"):
         keys_all, counts_all = [], []
         for f in input_files:
             kk, cc = read_kmers_bin(f, threshold=0)
             keys_all.append(kk)
             counts_all.append(cc)
-        kmap = KmerMap.from_pairs(np.concatenate(keys_all),
-                                  np.concatenate(counts_all))
+        sp.set(records=sum(kk.size for kk in keys_all),
+               bytes=sum(os.path.getsize(f) for f in input_files))
+        if len(keys_all) > 1:
+            keys_all = [np.concatenate(keys_all)]
+            counts_all = [np.concatenate(counts_all)]
+        kmap = KmerMap.from_pairs(keys_all[0], counts_all[0])
     else:
         for f in input_files:
             if not os.path.exists(f):
@@ -133,7 +159,9 @@ def _classified_stream(files: list[str], kmap: KmerMap, k: int,
     with ThreadPoolExecutor(workers) as ex:
         q: collections.deque = collections.deque()
         for b1, b2 in it:
-            q.append((b1, b2, ex.submit(work, b1), ex.submit(work, b2)))
+            # trace.submit: a worker's spans name the job's span as parent
+            q.append((b1, b2, trace.submit(ex, work, b1),
+                      trace.submit(ex, work, b2)))
             while len(q) > depth:
                 p1, p2, fu1, fu2 = q.popleft()
                 yield p1, p2, fu1.result(), fu2.result()
@@ -182,8 +210,16 @@ class ReadsClassifier(Tool):
         k = self.k.get(self)
         if device_classify():
             tool_device()
-        kmap, hasher = load_classifier_graph(
-            self, self.input_files.get(self), k, self.hash_function.get(self))
+        with trace.span("classify.load") as load:
+            kmap, hasher = load_classifier_graph(
+                self, self.input_files.get(self), k,
+                self.hash_function.get(self), load,
+                on_device=device_classify())
+            prepare_lookups(kmap)  # _classified_stream's call finds it
+            if device_classify():
+                # the device route probes only the card's copy
+                kmap.release_host()
+            load.set(map_keys=len(kmap))
 
         self.info("Loading reads...")
         files = self.reads_files.get(self)
@@ -208,43 +244,48 @@ class ReadsClassifier(Tool):
         try:
             for b1, b2, f1, f2 in _classified_stream(
                     files, kmap, k, hasher, z, thr, corr):
-                # single-end convention (PairFinder.java:42-44)
-                f2 = np.where(b2.lengths == 0, ~f1, f2)
-                # Vectorized bin routing: partition the batch by (f1, f2)
-                # once with numpy and write each bin as one slice -- per-read
-                # Python work is gone; order within each bin matches the
-                # reference's sequential pair loop (ReadsClassifier.java:160-187)
-                # because flatnonzero preserves batch order.
-                both = np.flatnonzero(f1 & f2)
-                neither = np.flatnonzero(~f1 & ~f2)
-                single = np.flatnonzero(f1 != f2)
-                n_both += both.size
-                n_neither += neither.size
-                n_first += int(np.count_nonzero(f1[single]))
-                n_second += single.size - int(np.count_nonzero(f1[single]))
-                # Bin I/O is vectorized end-to-end: each bin is one numpy
-                # blob assembly + one file write (io/writers.py::
-                # format_fastq_blob) straight from the ReadBatch arrays --
-                # no DnaQ object lists, no per-record formatting
-                # (reference writes record-by-record,
-                # src/tools/ReadsClassifier.java:206-222).
-                writers["found_1"].write_batch(
-                    b1.codes, b1.phred, b1.lengths, both)
-                writers["found_2"].write_batch(
-                    b2.codes, b2.phred, b2.lengths, both)
-                writers["not_found_1"].write_batch(
-                    b1.codes, b1.phred, b1.lengths, neither)
-                writers["not_found_2"].write_batch(
-                    b2.codes, b2.phred, b2.lengths, neither)
-                # single bins: the found mate goes to found_s, the other to
-                # not_found_s, empty mates skipped (PairFinder.java:46-54)
-                use1 = f1[single]
-                sc, sp, sl = _mix_rows(b1, b2, single, use1)
-                writers["found_s"].write_batch(
-                    sc, sp, sl, np.flatnonzero(sl > 0))
-                nc, np_, nl = _mix_rows(b1, b2, single, ~use1)
-                writers["not_found_s"].write_batch(
-                    nc, np_, nl, np.flatnonzero(nl > 0))
+                with trace.span("write.bins") as bins:
+                    # single-end convention (PairFinder.java:42-44)
+                    f2 = np.where(b2.lengths == 0, ~f1, f2)
+                    # Vectorized bin routing: partition the batch by
+                    # (f1, f2) once with numpy and write each bin as one
+                    # slice -- per-read Python work is gone; order within
+                    # each bin matches the reference's sequential pair loop
+                    # (ReadsClassifier.java:160-187) because flatnonzero
+                    # preserves batch order.
+                    both = np.flatnonzero(f1 & f2)
+                    neither = np.flatnonzero(~f1 & ~f2)
+                    single = np.flatnonzero(f1 != f2)
+                    n_both += both.size
+                    n_neither += neither.size
+                    n_first += int(np.count_nonzero(f1[single]))
+                    n_second += single.size - int(
+                        np.count_nonzero(f1[single]))
+                    # Bin I/O is vectorized end-to-end: each bin is one numpy
+                    # blob assembly + one file write (io/writers.py::
+                    # format_fastq_blob) straight from the ReadBatch arrays --
+                    # no DnaQ object lists, no per-record formatting
+                    # (reference writes record-by-record,
+                    # src/tools/ReadsClassifier.java:206-222).
+                    wrote = writers["found_1"].write_batch(
+                        b1.codes, b1.phred, b1.lengths, both)
+                    wrote += writers["found_2"].write_batch(
+                        b2.codes, b2.phred, b2.lengths, both)
+                    wrote += writers["not_found_1"].write_batch(
+                        b1.codes, b1.phred, b1.lengths, neither)
+                    wrote += writers["not_found_2"].write_batch(
+                        b2.codes, b2.phred, b2.lengths, neither)
+                    # single bins: the found mate goes to found_s, the
+                    # other to not_found_s, empty mates skipped
+                    # (PairFinder.java:46-54)
+                    use1 = f1[single]
+                    sc, sp, sl = _mix_rows(b1, b2, single, use1)
+                    wrote += writers["found_s"].write_batch(
+                        sc, sp, sl, np.flatnonzero(sl > 0))
+                    nc, np_, nl = _mix_rows(b1, b2, single, ~use1)
+                    wrote += writers["not_found_s"].write_batch(
+                        nc, np_, nl, np.flatnonzero(nl > 0))
+                    bins.set(bytes=wrote)
         finally:
             for w in writers.values():
                 w.close()

@@ -67,6 +67,25 @@ def test_lookup_device_matches_jax_lookup_sorted():
                           np.asarray(jm.lookup_device(jnp.asarray(q2))))
 
 
+@pytest.mark.parametrize("order", ["sorted", "shuffled", "repeated"])
+def test_from_pairs_matches_jax(order):
+    """Sorted distinct keys (a kmer-counter dump) make the map as they are;
+    any other order is sorted and its repeats summed, as in JAX."""
+    rng = np.random.default_rng(5)
+    keys = np.unique(rng.integers(-2**62, 2**62, 500, dtype=np.int64))
+    counts = rng.integers(1, 40000, keys.size).astype(np.int32)
+    if order == "shuffled":
+        perm = rng.permutation(keys.size)
+        keys, counts = keys[perm], counts[perm]
+    elif order == "repeated":
+        keys, counts = np.concatenate([keys, keys[:50]]), \
+            np.concatenate([counts, counts[:50]])
+    got, want = KmerMap.from_pairs(keys, counts), \
+        JaxKmerMap.from_pairs(keys, counts)
+    for a, b in ((got.keys, want.keys), (got.counts, want.counts)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
 def test_lookup_device_empty_map():
     jm = JaxKmerMap(np.empty(0, np.int64), np.empty(0, np.int32))
     tm = KmerMap(jm.keys, jm.counts)
@@ -200,8 +219,8 @@ def test_device_classify_switch(value, routed, monkeypatch):
     any non-empty value, "0" included; outputs are equal either way)."""
     jm, tm, jb, tb = _classify_setup(15, None)
     calls = []
-    real = TC._coverage_device
-    monkeypatch.setattr(TC, "_coverage_device",
+    real = TC._window_counts_device
+    monkeypatch.setattr(TC, "_window_counts_device",
                         lambda *a: calls.append(1) or real(*a))
     monkeypatch.setenv("MC_PLATFORM", "cpu")
     monkeypatch.setenv("MC_DEVICE_CLASSIFY", value)
@@ -211,13 +230,28 @@ def test_device_classify_switch(value, routed, monkeypatch):
 
 
 def test_device_coverage_equals_host_coverage(monkeypatch):
+    """Every window's count, then the window sums, of the device route
+    equal the host route's."""
     monkeypatch.setenv("MC_PLATFORM", "cpu")
     for k, hasher in ((15, None), (33, "poly"), (33, "fnv1a")):
         _, tm, _, tb = _classify_setup(k, hasher)
+        host_cov = TC._window_counts_host(tb, tm, k, hasher)
+        dev_cov = TC._window_counts_device(tb, tm, k, hasher).numpy()
+        valid = (np.arange(host_cov.shape[1])[None, :]
+                 < (tb.lengths - k + 1)[:, None])
+        assert dev_cov.shape == host_cov.shape
+        assert np.array_equal(dev_cov[valid], host_cov[valid])
+        assert (host_cov[valid] > 0).any()
+        monkeypatch.setenv("MC_DEVICE_CLASSIFY", "")
         host = TC._coverage(tb, tm, k, hasher)
-        dev = TC._coverage_device(tb, tm, k, hasher)
-        assert dev.dtype == host.dtype and np.array_equal(dev, host)
-        assert (host > 0).any()
+        monkeypatch.setenv("MC_DEVICE_CLASSIFY", "1")
+        dev = TC._coverage(tb, tm, k, hasher)
+        assert dev.dtype == host.dtype == np.int64
+        assert np.array_equal(dev, host)
+        # the sums are those of the valid windows
+        masked = np.where(valid, host_cov, 0)
+        assert np.array_equal(host[0], masked.sum(1))
+        assert np.array_equal(host[1], (masked > 0).sum(1))
 
 
 def test_found_stats_match_jax():
@@ -308,6 +342,21 @@ def test_kmers_bin_round_trip_matches_jax(tmp_path, threshold):
                                                thr),
                              JW.read_kmers_bin(str(tmp_path / "j.kmers.bin"),
                                                thr)):
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_kmers_bin_read_in_chunks_matches_jax(tmp_path, monkeypatch):
+    """The port reads a dump a chunk of records at a time; chunks of 7
+    records, the last one short, give JAX's arrays."""
+    monkeypatch.setattr(TW, "KMERS_BIN_CHUNK", 7)
+    _, jm, _ = _top_bit_map(8)
+    counts = np.random.default_rng(9).integers(1, 5, len(jm))
+    path = str(tmp_path / "j.kmers.bin")
+    JW.write_kmers_bin(path, str(tmp_path / "j.stat.txt"), jm.keys, counts)
+    assert len(jm) % 7
+    for thr in (0, 3):
+        for got, want in zip(TW.read_kmers_bin(path, thr),
+                             JW.read_kmers_bin(path, thr)):
             assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
@@ -495,6 +544,68 @@ def test_classify_pool_builds_only_the_lookup_it_probes(
     assert set(seen) == {(not on_device, on_device)}
     assert hasattr(kmap, "_ptable") != on_device
     assert bool(kmap._device) == on_device
+
+
+@pytest.mark.parametrize("device_classify", ["", "1"], ids=["host", "device"])
+def test_classifier_lets_go_of_the_host_map_on_the_device_route(
+        metagenomes, device_classify, tmp_path, monkeypatch):
+    """Under MC_DEVICE_CLASSIFY the job's map lives on the device alone
+    once copied there; the host route keeps its arrays and probe table."""
+    monkeypatch.setenv("MC_PLATFORM", "cpu")
+    monkeypatch.setenv("MC_DEVICE_CLASSIFY", device_classify)
+    released = []
+    real = KmerMap.release_host
+    monkeypatch.setattr(KmerMap, "release_host",
+                        lambda self: released.append(bool(self._device))
+                        or real(self))
+    assert port_main(["-t", "reads-classifier", "-k", "21",
+                      "-i", str(metagenomes / "graph.fastq"),
+                      "-r", str(metagenomes / "r1.fastq"),
+                      str(metagenomes / "r2.fastq"),
+                      "-o", str(tmp_path / "o"),
+                      "--work-dir", str(tmp_path / "w")]) == 0
+    assert released == ([True] if device_classify else [])
+
+
+def test_classify_pool_puts_one_batch_on_the_device_at_a_time(
+        metagenomes, monkeypatch):
+    """The pool's workers take turns on the device: one batch's keys and
+    lookups at a time, so the job's device peak does not follow the
+    workers' timing; the found reads are those of one worker."""
+    import time
+    from metacherchant_tpu_torch.counting import count_kmers_host
+    from metacherchant_tpu_torch.tools import reads_classifier as RC
+    monkeypatch.setenv("MC_PLATFORM", "cpu")
+    monkeypatch.setenv("MC_DEVICE_CLASSIFY", "1")
+    monkeypatch.setattr(RC, "CLASSIFY_BATCH", 16)
+    kmap = count_kmers_host([str(metagenomes / "graph.fastq")], 21)
+    files = [str(metagenomes / "r1.fastq"), str(metagenomes / "r2.fastq")]
+
+    def found(threads):
+        monkeypatch.setenv("MC_CLASSIFY_THREADS", threads)
+        return [np.concatenate([f1, f2]) for _, _, f1, f2 in
+                RC._classified_stream(files, kmap, 21, None, 1.0, 0.9, False)]
+
+    one = found("1")
+    active, most = [0], [0]
+    lock = threading.Lock()
+    real = KmerMap.lookup_device
+
+    def lookup(self, query):
+        with lock:
+            active[0] += 1
+            most[0] = max(most[0], active[0])
+        time.sleep(0.005)
+        try:
+            return real(self, query)
+        finally:
+            with lock:
+                active[0] -= 1
+
+    monkeypatch.setattr(KmerMap, "lookup_device", lookup)
+    pooled = found("4")
+    assert len(one) >= 4 and most[0] == 1
+    assert all(np.array_equal(a, b) for a, b in zip(one, pooled))
 
 
 # ---------------------------------------------------------------------------

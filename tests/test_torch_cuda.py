@@ -322,11 +322,19 @@ def test_device_coverage_on_card_matches_host(cuda, k, hasher, tmp_path,
     batch = classify.ReadBatch.from_dnaqs(
         [DnaQ.from_string(r, 30) for r in reads])
     before = trace.counter("extract.launches")
-    got = classify._coverage_device(batch, counted, k, hasher)
+    got_cov = classify._window_counts_device(batch, counted, k, hasher)
     assert trace.counter("extract.launches") == before + (hasher is None)
+    assert got_cov.device.type == "cuda"
+    want_cov = classify._window_counts_host(batch, counted, k, hasher)
+    valid = (np.arange(want_cov.shape[1])[None, :]
+             < (batch.lengths - k + 1)[:, None])
+    assert tuple(got_cov.shape) == want_cov.shape
+    assert np.array_equal(got_cov.cpu().numpy()[valid], want_cov[valid])
+    assert (want_cov[valid] > 0).any()
     want = classify._coverage(batch, counted, k, hasher)
+    monkeypatch.setenv("MC_DEVICE_CLASSIFY", "1")
+    got = classify._coverage(batch, counted, k, hasher)
     assert got.dtype == want.dtype and np.array_equal(got, want)
-    assert (want > 0).any()
 
 
 @pytest.mark.parametrize("k", [21, 31])

@@ -282,3 +282,38 @@ def test_ctypes_signatures_match_the_source():
         kinds = [re.sub(r"\s*\w+$", "", p.strip())
                  for p in params.group(1).split(",")]
         assert [width[kind] for kind in kinds] == argtypes, name
+
+
+def test_first_launches_from_many_threads_build_the_library_once(
+        monkeypatch):
+    """Threads that launch the kernel first (reads-classifier's pool) wait
+    for one build: concurrent builds in one process share a temporary file,
+    and all but the first one failed."""
+    import ctypes
+    import threading
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+
+    builds = []
+
+    def build():
+        builds.append(threading.get_ident())
+        time.sleep(0.05)
+        return ""
+
+    class Library:
+        def __init__(self, path):
+            for name in extract_cuda.ARGTYPES:
+                setattr(self, name, SimpleNamespace())
+
+    monkeypatch.setattr(extract_cuda, "build", build)
+    monkeypatch.setattr(ctypes, "CDLL", Library)
+    extract_cuda._load_library.cache_clear()
+    try:
+        with ThreadPoolExecutor(8) as ex:
+            libs = list(ex.map(lambda _: extract_cuda._library(), range(8)))
+    finally:
+        extract_cuda._load_library.cache_clear()
+    assert len(builds) == 1
+    assert all(lib is libs[0] for lib in libs)

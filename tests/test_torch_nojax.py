@@ -274,7 +274,9 @@ def test_native_sources_are_the_ports_own(tmp_path, monkeypatch):
     command names sources there only, and fastio.cpp is byte-equal to the
     JAX package's source (frozen: drift fails here). bfs.cpp differs by
     design (its count lookups search the map's sorted keys);
-    tests/test_torch_native_bfs.py holds it to the port's Python engines."""
+    tests/test_torch_native_bfs.py holds it to the port's Python engines.
+    readstream.cpp is the port's alone; tests/test_torch_native_reads.py
+    holds it to the whole-file parse."""
     from metacherchant_tpu_torch import native
     from metacherchant_tpu_torch.ops import extract_cuda
     assert (native.SRC_DIR / "fastio.cpp").read_bytes() == \
@@ -289,12 +291,13 @@ def test_native_sources_are_the_ports_own(tmp_path, monkeypatch):
 
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(native.subprocess, "run", spy)
-    libs = [native._load_fastio.__wrapped__(), native._load_bfs.__wrapped__()]
-    assert len(commands) == 2
+    libs = [native._load_fastio.__wrapped__(), native._load_bfs.__wrapped__(),
+            native._load_readstream.__wrapped__()]
+    assert len(commands) == 3
     for cmd in commands:
         sources = [Path(a) for a in cmd if a.endswith((".cpp", ".cu"))]
         assert len(sources) == 1 and sources[0].parent == native.SRC_DIR
         assert sources[0].resolve().is_relative_to(PORT)
-    if all(lib is not None for lib in libs):  # g++ present: both built here
+    if all(lib is not None for lib in libs):  # g++ present: all built here
         assert sorted(p.name for p in tmp_path.glob("*.so")) == \
-            ["libbfs.so", "libfastio.so"]
+            ["libbfs.so", "libfastio.so", "libreadstream.so"]

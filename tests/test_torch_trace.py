@@ -284,3 +284,124 @@ def test_profiler_trace_holds_each_port_span(inputs, tmp_path, monkeypatch):
              and e.get("cat") == "user_annotation"]
     for name in set(_names(rec)):
         assert marks.count(name) == _names(rec).count(name), name
+
+
+#: the spans reads-classifier's job opens (below its `tool` root)
+CLASSIFY_SPANS = {"classify.load", "classify.parse", "classify.find",
+                  "classify.coverage", "write.bins"}
+CLASSIFY_BINS = ("found_1", "found_2", "not_found_1", "not_found_2",
+                 "found_s", "not_found_s")
+
+
+class _NoSpanAllowed:
+    def __init__(self, *args):
+        raise AssertionError("a span was made with no recording open")
+
+
+@pytest.fixture(scope="module")
+def classified(inputs, tmp_path_factory):
+    """kmer-counter -b 1 of the reads, then reads-classifier of the reads'
+    two halves as mates against its dump, in batches of 256 pairs, on each
+    route: the device route with three workers and the host route with
+    one, each recorded, and unrecorded with span making forbidden."""
+    from metacherchant_tpu_torch.tools import reads_classifier
+    tmp = tmp_path_factory.mktemp("classified")
+    lines = (inputs / "reads.fastq").read_text().splitlines(True)
+    (tmp / "r1.fastq").write_text("".join(lines[:4000]))
+    (tmp / "r2.fastq").write_text("".join(lines[4000:]))
+    mp = pytest.MonkeyPatch()
+    mp.setenv("MC_PLATFORM", "cpu")
+    mp.setattr(reads_classifier, "CLASSIFY_BATCH", 256)
+    runs = {}
+    try:
+        assert port_main(["-t", "kmer-counter", "-k", "21", "-b", "1",
+                          "-i", str(inputs / "reads.fastq"),
+                          "-o", str(tmp / "bin"),
+                          "--work-dir", str(tmp / "wbin")]) == 0
+        for route, flag, threads in (("device", "1", "3"),
+                                     ("host", "", "1")):
+            mp.setenv("MC_DEVICE_CLASSIFY", flag)
+            mp.setenv("MC_CLASSIFY_THREADS", threads)
+            out = {}
+            for mode in ("on", "off"):
+                argv = ["-t", "reads-classifier", "-k", "21",
+                        "-i", str(tmp / "bin" / "reads.kmers.bin"),
+                        "-r", str(tmp / "r1.fastq"), str(tmp / "r2.fastq"),
+                        "-o", str(tmp / route / mode / "out"),
+                        "--work-dir", str(tmp / route / mode / "wd")]
+                if mode == "on":
+                    with trace.recording() as rec:
+                        assert port_main(argv) == 0
+                else:
+                    with pytest.MonkeyPatch.context() as off:
+                        off.setattr(trace, "_Span", _NoSpanAllowed)
+                        assert port_main(argv) == 0
+                out[mode] = _tree(tmp / route / mode / "out")
+            runs[route] = (rec, out["on"], out["off"])
+    finally:
+        mp.undo()
+    return tmp, runs
+
+
+@pytest.mark.parametrize("route", ["device", "host"])
+def test_classifier_spans_chain_to_the_tool_root(classified, route):
+    """Each batch's classify.find runs in a worker of the pool on the
+    device route, under the job's `tool` span all the same; its child
+    classify.coverage runs in the same thread."""
+    rec = classified[1][route][0]
+    (root,) = [s for s in rec.spans if s.name == "tool"]
+    names = set(_names(rec)) - {"tool"}
+    assert names == CLASSIFY_SPANS | ({"kmap.probe_table"}
+                                      if route == "host" else set())
+    assert all(s.root == root.id for s in rec.spans)
+    by_id = {s.id: s for s in rec.spans}
+    finds = [s for s in rec.spans if s.name == "classify.find"]
+    assert len(finds) == 8  # 1,000 pairs in batches of 256, two mates
+    assert all(s.parent == root.id for s in finds)
+    assert all(s.attrs["engine"] == route for s in finds)
+    if route == "device":
+        assert all(s.thread != root.thread for s in finds)
+    for s in rec.spans:
+        if s.name == "classify.coverage":
+            parent = by_id[s.parent]
+            assert parent.name == "classify.find"
+            assert s.thread == parent.thread
+            assert parent.t0 <= s.t0 <= s.t1 <= parent.t1
+        elif s.name in ("classify.load", "classify.parse", "write.bins"):
+            assert s.parent == root.id and s.thread == root.thread
+
+
+@pytest.mark.parametrize("route", ["device", "host"])
+def test_classifier_counts_add_up(classified, route):
+    """The finds' reads and windows are the mates', once; the counters
+    count them and the found reads the bins hold; the load and bin spans
+    hold the bytes of the dump and the bins, the parses the pairs and bases
+    of the mates, a batch pair at a time; the files
+    are the same with recording on and off (with no span made)."""
+    tmp, runs = classified
+    rec, on, off = runs[route]
+    assert on and on == off
+    spans = {n: [s for s in rec.spans if s.name == n] for n in CLASSIFY_SPANS}
+    finds = spans["classify.find"]
+    assert sum(s.attrs["reads"] for s in finds) == 2000
+    assert sum(s.attrs["windows"] for s in finds) == WINDOWS
+    found = sum(on[f"{b}.fastq"].count(b"\n+\n")
+                for b in ("found_1", "found_2", "found_s"))
+    assert 0 < found < 2000
+    assert rec.counters["classify.reads"] == 2000
+    assert rec.counters["classify.found"] == found
+    dump = (tmp / "bin" / "reads.kmers.bin").stat().st_size
+    (load,) = spans["classify.load"]
+    assert load.attrs == {"records": dump // 10, "bytes": dump,
+                          "map_keys": dump // 10}
+    # one parse a batch pair, 1,000 pairs in batches of 256, and the end
+    parses = spans["classify.parse"]
+    assert [s.attrs["reads"] for s in parses] == [256, 256, 256, 232, 0]
+    assert sum(s.attrs["bases"] for s in parses) == sum(
+        len(line.strip())
+        for f in ("r1.fastq", "r2.fastq")
+        for line in (tmp / f).read_text().splitlines()[1::4])
+    bins = spans["write.bins"]
+    assert len(bins) == 4
+    assert sum(s.attrs["bytes"] for s in bins) == sum(
+        len(on[f"{b}.fastq"]) for b in CLASSIFY_BINS)
