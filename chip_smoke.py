@@ -11,9 +11,9 @@ the `sort` (each consolidation route), `merge`, `chunk`, `hash` and
 at a real data size and checks them:
 
   1. device         the card's name and power limit;
-  2. build          the CUDA extraction kernel (nvcc, sm_90a) and the native
-                    host libraries (g++), all from the sources in
-                    metacherchant_tpu_torch/csrc/;
+  2. build          the CUDA extraction and merge kernels (nvcc, sm_90a)
+                    and the native host libraries (g++), all from the
+                    sources in metacherchant_tpu_torch/csrc/;
   3. kernel         both entries of the kernel against their plain torch
                     versions on the card, bit for bit, for several k, with
                     the kernel's, the plain version's and the bound's times
@@ -114,8 +114,13 @@ at a real data size and checks them:
                     slice's final geometry under torch.profiler (sort2,
                     shift and merge-split lane for lane equal); the chunk
                     engine's largest launch against the plain version with
-                    its share of the byte bound; environment-finder -k 31
-                    under MC_COUNT_ENGINE=merge and chunk against phase 5's
+                    its share of the byte bound; the merge route's kernel
+                    (csrc/consolidate.cu) alone and with its sort at the
+                    benchmark's largest merge-route calls against the plain
+                    route on the card, key for key, with the byte bound and
+                    peak memory, and its launches (one per merge-split
+                    consolidation); environment-finder -k 31 under
+                    MC_COUNT_ENGINE=merge and chunk against phase 5's
                     files;
  20. scalar-poly    build_environment_hashed for phase 8's three genes at
                     k=55 (poly) on the map of phase 5's reads, with the
@@ -258,14 +263,16 @@ def write_genes(path: str, genes: list[np.ndarray]) -> None:
 
 def phase_build() -> None:
     from metacherchant_tpu_torch import native
-    from metacherchant_tpu_torch.ops import extract_cuda
-    t0 = time.perf_counter()
-    log = extract_cuda.build()
-    say("build", f"extraction kernel {extract_cuda.SOURCE.name} built in "
-                 f"{time.perf_counter() - t0:.2f} s (nvcc "
-                 f"{' '.join(extract_cuda.NVCC_FLAGS)})")
-    for line in (log or "already up to date").strip().splitlines():
-        say("build", "  " + line.strip())
+    from metacherchant_tpu_torch.ops import consolidate_cuda, extract_cuda
+    for what, mod in (("extraction", extract_cuda),
+                      ("merge", consolidate_cuda)):
+        t0 = time.perf_counter()
+        log = mod.build()
+        say("build", f"{what} kernel {mod.SOURCE.name} built in "
+                     f"{time.perf_counter() - t0:.2f} s (nvcc "
+                     f"{' '.join(extract_cuda.NVCC_FLAGS)})")
+        for line in (log or "already up to date").strip().splitlines():
+            say("build", "  " + line.strip())
     t0 = time.perf_counter()
     parser, bfs = native.available(), native.bfs_available()
     say("build", f"native host libraries from "
@@ -2082,7 +2089,8 @@ class ConsolidationRoutes:
     """Counts the consolidations made inside the block by route, with their
     lane totals: the sort engine's sort2 (ops/sortcount.consolidate, or
     _consolidate_full_split under MC_SORT_COMPACTION=shift) and merge-split
-    routes, and the merge engine's merge_rle_compact."""
+    routes (ops/consolidate_cuda.merge_into_store: the kernel on the card),
+    and the merge engine's merge_rle_compact."""
 
     def __enter__(self):
         from metacherchant_tpu_torch.ops import mergecount, sortcount
@@ -2090,15 +2098,17 @@ class ConsolidationRoutes:
                      "merge_rle_compact": []}
         targets = ((sortcount, "consolidate", "sort2"),
                    (sortcount, "_consolidate_full_split", "shift"),
-                   (sortcount, "_consolidate_merge_split", "merge-split"),
+                   (sortcount, "merge_into_store", "merge-split"),
                    (mergecount, "merge_rle_compact", "merge_rle_compact"))
         self.saved = [(mod, name, getattr(mod, name))
                       for mod, name, _ in targets]
 
         def counted(fn, route):
             def call(*args, **kw):
-                # keys in: the store's lanes and the buffer's (or run's)
-                self.made[route].append(args[0].numel() + args[2].numel())
+                # lanes in: the store's (merge-split: its store_cap, as
+                # the JAX engine pads it) and the buffer's (or run's)
+                store = args[4] if route == "merge-split" else args[0].numel()
+                self.made[route].append(store + args[2].numel())
                 return fn(*args, **kw)
             return call
         for (mod, name, fn), (_, _, route) in zip(self.saved, targets):
@@ -2207,6 +2217,91 @@ def consolidation_ms(keys: np.ndarray, cnts: np.ndarray, card: str) -> dict:
     return out
 
 
+#: the largest merge-route consolidation of each counting cell of the
+#: benchmark (store keys in, buffer lanes filled, the store's and the
+#: buffer's capacities), from its count.consolidate spans on seed 3000000021
+MERGE_SHAPES = {"fmt-k31.count": (118_420_347, 134_184_960, 1 << 27,
+                                  1 << 27),
+                "envfinder-k31.genes3": (15_468_052, 16_711_680, 1 << 24,
+                                         1 << 24)}
+
+
+def merge_kernel_ms(card: str) -> dict:
+    """The merge route's kernel (ops/consolidate_cuda) at the counting
+    cells' largest call shapes: a store of random distinct keys and a
+    buffer of 90% store keys and 10% new ones, filled to the call's lanes. Times between CUDA events of
+    the kernel alone (on the sorted lanes), of the whole new consolidation
+    (torch.sort of the lanes, then the kernel) and of the plain route on
+    the card (the JAX package's merge-split at the padded total), beside
+    the bound: peaks.consolidate_bytes over 3.35 TB/s. The kernel's store
+    equals the plain route's, key for key."""
+    from benchmark import peaks
+    from metacherchant_tpu_torch.ops import consolidate_cuda as cc
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    out = {}
+    for cell, (store_in, lanes, store_cap, buffer_cap) in \
+            MERGE_SHAPES.items():
+        gen.manual_seed(store_in)
+        keys = torch.unique(torch.randint(0, 1 << 62, (store_in + store_in
+                                                       // 64,),
+                                          generator=gen, device=dev))
+        keys = keys[torch.randperm(keys.numel(), generator=gen,
+                                   device=dev)[:store_in]].sort().values
+        cnts = torch.randint(1, 50, (store_in,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        pick = torch.randint(0, store_in, (buffer_cap,), generator=gen,
+                             device=dev)
+        fresh = torch.randint(0, 1 << 62, (buffer_cap,), generator=gen,
+                              device=dev)
+        buf = torch.where(torch.rand(buffer_cap, generator=gen,
+                                     device=dev) < 0.9, keys[pick], fresh)
+        del pick, fresh
+        run = torch.sort(buf[:lanes]).values
+        got = cc._merge_sorted_run(keys, cnts, run)
+        nbytes = peaks.consolidate_bytes(store_in, lanes, got[0].numel())
+        kernel = _time_ms(lambda: cc._merge_sorted_run(keys, cnts, run), 3)
+        del run
+        whole = _time_ms(lambda: cc.merge_into_store(keys, cnts, buf, lanes,
+                                                     store_cap), 3)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        want = cc.merge_into_store_plain(keys, cnts, buf, lanes, store_cap)
+        plain_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        plain = _time_ms(lambda: cc.merge_into_store_plain(
+            keys, cnts, buf, lanes, store_cap), 1)
+        check(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
+              f"{cell}: the merge kernel's store differs from the plain "
+              f"route's")
+        del want
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cc.merge_into_store(keys, cnts, buf, lanes, store_cap)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        bound = peaks.bound_s(nbytes) * 1e3
+        out[cell] = {"store_in": store_in, "lanes": lanes,
+                     "store_out": got[0].numel(), "bytes": nbytes,
+                     "bound_ms": bound, "kernel_ms": kernel,
+                     "whole_ms": whole, "plain_ms": plain,
+                     "kernel_share": bound / kernel,
+                     "whole_share": bound / whole,
+                     "whole_peak_gib": peak, "plain_peak_gib": plain_peak}
+        say("count-engines", f"merge kernel at {cell}'s largest call (store "
+                             f"{store_in} keys, {lanes} lanes, "
+                             f"{got[0].numel()} out, {nbytes} bytes, bound "
+                             f"{bound:.3f} ms): kernel {kernel:.3f} ms "
+                             f"({100 * bound / kernel:.1f}%), sort + kernel "
+                             f"{whole:.3f} ms ({100 * bound / whole:.2f}%, "
+                             f"{peak:.3f} GiB above the inputs), plain route "
+                             f"{plain:.3f} ms ({plain_peak:.3f} GiB); key "
+                             f"for key equal ({card})")
+        del keys, cnts, buf, got
+        gc.collect()
+    return out
+
+
 def phase_count_engines(fq: str, genes: str, tmp: str, card: str) -> dict:
     """count_kmers_device on the slice's reads under the sort engine's
     routes and the merge and chunk engines, each key for key against
@@ -2217,6 +2312,7 @@ def phase_count_engines(fq: str, genes: str, tmp: str, card: str) -> dict:
     MC_COUNT_ENGINE=merge and chunk against the slice's files. Returns the
     launches by path, the chunk launch's record and the consolidations'
     device ms."""
+    from metacherchant_tpu_torch import trace
     from metacherchant_tpu_torch.counting import count_kmers_device
     from metacherchant_tpu_torch.ops import sortcount
     dev = torch.device("cuda")
@@ -2246,12 +2342,14 @@ def phase_count_engines(fq: str, genes: str, tmp: str, card: str) -> dict:
                     stack.enter_context(sort2_at_any_size())
                 routes = stack.enter_context(ConsolidationRoutes())
                 before = _launches()
+                merges_before = trace.counter("consolidate.launches")
                 t0 = time.perf_counter()
                 got = count_kmers_device([fq], k, hasher, device=dev,
                                          engine=engine)
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
                 launches[label, k] = _launches() - before
+                merges = trace.counter("consolidate.launches") - merges_before
         finally:
             os.environ.pop("MC_SORT_COMPACTION", None)
             sortcount.append_ragged = append
@@ -2268,8 +2366,14 @@ def phase_count_engines(fq: str, genes: str, tmp: str, card: str) -> dict:
                              + f"; {secs:.3f} s, kernel launches "
                              f"{launches[label, k]}, peak device memory "
                              f"{_peak_gib():.3f} GiB; consolidations: "
-                             f"{routes.summary()} ({card})")
+                             f"{routes.summary()}; merge kernel launches "
+                             f"{merges} ({card})")
         made = {r: len(n) for r, n in routes.made.items()}
+        check(merges == made["merge-split"],
+              f"k={k} {label}: {merges} merge kernel launches for "
+              f"{made['merge-split']} merge-split consolidations")
+        if label == "auto":
+            merge_launches = merges
         if label in ("sort2", "shift"):
             check(made["merge-split"] == 0 and made["merge_rle_compact"] == 0,
                   f"k={k} {label} took another route: {made}")
@@ -2309,6 +2413,7 @@ def phase_count_engines(fq: str, genes: str, tmp: str, card: str) -> dict:
     del codes, starts, lens
     cons = consolidation_ms(maps[MAIN_K].keys, maps[MAIN_K].counts, card)
     del maps
+    merge_kernel = merge_kernel_ms(card)
     slice_out = tree(os.path.join(tmp, "out"))
     for engine in ("merge", "chunk"):
         out = os.path.join(tmp, f"out_{engine}")
@@ -2336,7 +2441,8 @@ def phase_count_engines(fq: str, genes: str, tmp: str, card: str) -> dict:
               if label == "cli" else f"count_kmers_device -k {k} {label}"
               + ("" if label in ("merge", "chunk") else " (sort engine)")): n
              for (label, k), n in launches.items()}
-    return {"launches": paths, "chunk": chunk_rec, "consolidation": cons}
+    return {"launches": paths, "chunk": chunk_rec, "consolidation": cons,
+            "merge_kernel": merge_kernel, "merge_launches": merge_launches}
 
 
 def phase_scalar_poly(fq: str, genes: str, tmp: str, card: str) -> None:
@@ -2511,6 +2617,16 @@ def main() -> int:
             route: {key: c[key] for key in ("device_ms", "event_ms")}
             for route, c in engines["consolidation"].items()},
         "shapes": kernel["shapes"] + [engines["chunk"]],
+    }, {
+        "name": "merge_into_store",
+        "route": "cuda",
+        "source": "metacherchant_tpu_torch/csrc/consolidate.cu",
+        "replaces": None,
+        "launches": {f"count_kmers_device -k {MAIN_K} auto (sort engine)":
+                     engines["merge_launches"]},
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shapes": engines["merge_kernel"],
     }]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

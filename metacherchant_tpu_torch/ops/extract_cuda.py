@@ -51,21 +51,28 @@ def _nvcc() -> str:
                        "extraction kernel cannot be built")
 
 
-def build() -> str:
-    """Compile the kernel library unless an up-to-date one exists.
+def build_library(source: Path, lib: Path) -> str:
+    """Compile a .cu source of csrc/ into `lib` unless an up-to-date one
+    exists.
 
     Returns nvcc's report (ptxas registers/spills per kernel), or '' when
     nothing was compiled. Raises when nvcc is missing or fails."""
-    if _LIB.exists() and _LIB.stat().st_mtime >= SOURCE.stat().st_mtime:
+    if lib.exists() and lib.stat().st_mtime >= source.stat().st_mtime:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB.with_name(f"{_LIB.name}.tmp{os.getpid()}")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, str(SOURCE), "-o", str(tmp)],
+    tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, str(source), "-o", str(tmp)],
                          capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{res.stderr}")
-    os.replace(tmp, _LIB)
+        raise RuntimeError(f"nvcc failed on {source.name}:\n{res.stderr}")
+    os.replace(tmp, lib)
     return res.stdout + res.stderr
+
+
+def build() -> str:
+    """Compile the kernel library unless an up-to-date one exists
+    (build_library)."""
+    return build_library(SOURCE, _LIB)
 
 
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

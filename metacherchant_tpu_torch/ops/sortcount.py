@@ -21,7 +21,10 @@ ChunkedStreamCounter:
                 run-lasts move to the front by shift stages instead
                 (_consolidate_full_split); merge -- a sort of the buffer
                 alone, a bitonic merge into the sorted store, the same
-                cumsum and shift stages (_consolidate_merge_split)
+                cumsum and shift stages (_consolidate_merge_split), which
+                runs as it is on the CPU; on the card the sorted buffer's
+                lanes go into the store through one merge-path kernel
+                (ops/consolidate_cuda.merge_into_store)
   finalize:     last consolidation; counts clamp at 32767
                 (itmo:utils/NumUtils.java:21-26)
 
@@ -43,6 +46,8 @@ import torch
 from .. import trace
 from ..kmer_map import SATURATION
 from .bitonic import (_displacement, _half_clean, _shift_compact_stages)
+from . import consolidate_cuda
+from .consolidate_cuda import merge_into_store
 from .extract_cuda import extract_append, extract_append_ragged
 from .kmers import SENTINEL, hash_canonical_kmers
 
@@ -207,6 +212,15 @@ def _diff_finish(keys_c: torch.Tensor, pref_c: torch.Tensor
     return keys_c, cnts, (~sentinel).sum(dtype=torch.int32)
 
 
+def _pad_store(keys: torch.Tensor, cnts: torch.Tensor, cap: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A compact store as the JAX engine holds it: `cap` lanes, (SENTINEL,
+    0) behind its keys."""
+    pad = cap - keys.numel()
+    return (torch.cat([keys, keys.new_full((pad,), SENTINEL)]),
+            torch.cat([cnts, cnts.new_zeros(pad)]))
+
+
 def _consolidate_merge_split(store_keys: torch.Tensor,
                              store_cnts: torch.Tensor, buf: torch.Tensor,
                              offset: int
@@ -253,6 +267,10 @@ class StreamCounter:
             raise ValueError(
                 f"mode must be 'auto', 'sort2' or 'merge'; got {mode!r}")
         self.device = torch.device(device)
+        if self.device.type == "cuda" and mode != "sort2":
+            # the merge kernel is built and loaded with the counter, not in
+            # the first merge-route consolidation of a run
+            consolidate_cuda.load()
         self.mode = mode
         self.buffer_cap = buffer_cap
         self.store_cap = store_cap
@@ -325,13 +343,6 @@ class StreamCounter:
         return self.mode == "merge" or (
             self.mode == "auto" and total > self.SORT2_LANE_CEILING)
 
-    def _padded_store(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The store as the JAX engine holds it: store_cap lanes."""
-        pad = self.store_cap - self.store_keys.numel()
-        return (torch.cat([self.store_keys,
-                           self.store_keys.new_full((pad,), SENTINEL)]),
-                torch.cat([self.store_cnts, self.store_cnts.new_zeros(pad)]))
-
     def _take_buffer(self) -> torch.Tensor:
         buf, self.buf = self.buf, None
         return buf
@@ -347,13 +358,17 @@ class StreamCounter:
                                "full_split" if shift else "sort2"),
                         store_in=self.store_keys.numel(),
                         lanes=self.offset) as sp:
-            if use_merge or shift:
-                fn = (_consolidate_merge_split if use_merge
-                      else _consolidate_full_split)
-                # the buffer goes in as the only reference: the merge route
-                # frees it before its stages run
-                keys, cnts, nd = fn(*self._padded_store(),
-                                    self._take_buffer(), self.offset)
+            if use_merge:
+                # the buffer goes in as the only reference: on the card it
+                # is freed once its filled lanes are sorted
+                self.store_keys, self.store_cnts = merge_into_store(
+                    self.store_keys, self.store_cnts, self._take_buffer(),
+                    self.offset, self.store_cap)
+            elif shift:
+                keys, cnts, nd = _consolidate_full_split(
+                    *_pad_store(self.store_keys, self.store_cnts,
+                                self.store_cap),
+                    self._take_buffer(), self.offset)
                 nd = int(nd)
                 self.store_keys, self.store_cnts = (keys[:nd].clone(),
                                                     cnts[:nd].clone())

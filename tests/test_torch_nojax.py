@@ -278,10 +278,12 @@ def test_native_sources_are_the_ports_own(tmp_path, monkeypatch):
     readstream.cpp is the port's alone; tests/test_torch_native_reads.py
     holds it to the whole-file parse."""
     from metacherchant_tpu_torch import native
-    from metacherchant_tpu_torch.ops import extract_cuda
+    from metacherchant_tpu_torch.ops import consolidate_cuda, extract_cuda
     assert (native.SRC_DIR / "fastio.cpp").read_bytes() == \
         (JAX_PKG / "native" / "fastio.cpp").read_bytes()
     assert extract_cuda.SOURCE.is_relative_to(PORT)
+    assert consolidate_cuda.SOURCE.is_relative_to(PORT)
+    assert consolidate_cuda.SOURCE.parent == native.SRC_DIR
     commands = []
     run = subprocess.run
 

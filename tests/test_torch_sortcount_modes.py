@@ -1,6 +1,7 @@
 """The sort engine's consolidation routes against the JAX package's:
 `sort2` (with the sort2 or the MC_SORT_COMPACTION=shift compaction),
-`merge` (the merge-split: buffer sort, bitonic merge, shift compaction)
+`merge` (the merge-split: buffer sort, bitonic merge, shift compaction;
+on the CPU the plain version of ops/consolidate_cuda.merge_into_store)
 and `auto`.
 
 The full-length results of one consolidation are compared at the same
@@ -17,7 +18,9 @@ import torch
 from metacherchant_tpu.counting import count_kmers_device as jax_count
 from metacherchant_tpu.ops import sortcount as js
 from metacherchant_tpu_torch.counting import count_kmers_device
+from metacherchant_tpu_torch.ops import consolidate_cuda
 from metacherchant_tpu_torch.ops import sortcount as ts
+from metacherchant_tpu_torch.ops.consolidate_cuda import merge_into_store
 from metacherchant_tpu_torch.ops.kmers import SENTINEL
 
 CPU = torch.device("cpu")
@@ -74,6 +77,95 @@ def test_merge_split_matches_jax(store_n, buf_n, offset):
     _same(js._consolidate_merge_split(jnp.asarray(store), jnp.asarray(cnts),
                                       jnp.asarray(buf), jnp.int32(off)), got)
     assert got[0].numel() == 1 << (store_n + buf_n - 1).bit_length()
+
+
+@pytest.mark.parametrize("store_n,buf_n,offset", GEOMETRIES)
+def test_merge_into_store_on_cpu_is_the_merge_split(store_n, buf_n, offset):
+    """The merge route's wrapper on CPU tensors, given the compact store:
+    _consolidate_merge_split on the store padded to store_cap, cut to its
+    n_distinct, and the JAX package's merge-split cut so."""
+    store, cnts, buf, off = _geometry(store_n + buf_n, store_n, buf_n, offset)
+    live = int(np.count_nonzero(store != SENTINEL))
+    got = merge_into_store(torch.from_numpy(store[:live]),
+                           torch.from_numpy(cnts[:live]),
+                           torch.from_numpy(buf), off, store_n)
+    keys, c, nd = ts._consolidate_merge_split(
+        torch.from_numpy(store), torch.from_numpy(cnts),
+        torch.from_numpy(buf), off)
+    nd = int(nd)
+    _same((keys[:nd], c[:nd]), got)
+    jk, jc, jnd = js._consolidate_merge_split(
+        jnp.asarray(store), jnp.asarray(cnts), jnp.asarray(buf),
+        jnp.int32(off))
+    jnd = int(jnd)
+    assert jnd == nd == got[0].numel() > 0
+    _same((np.asarray(jk)[:jnd], np.asarray(jc)[:jnd]), got)
+
+
+def _bad_merge_args(case: str):
+    """merge_into_store's arguments, broken one way."""
+    keys = torch.arange(8, dtype=torch.int64)
+    cnts = torch.ones(8, dtype=torch.int32)
+    buf = torch.arange(16, dtype=torch.int64)
+    args = dict(store_keys=keys, store_cnts=cnts, buf=buf, offset=16,
+                store_cap=8)
+    args.update({
+        "keys_int32": dict(store_keys=keys.to(torch.int32)),
+        "cnts_int64": dict(store_cnts=cnts.to(torch.int64)),
+        "lengths": dict(store_cnts=cnts[:7]),
+        "over_cap": dict(store_cap=7),
+        "offset_0": dict(offset=0),
+        "offset_past": dict(offset=17),
+        "buf_2d": dict(buf=buf.reshape(4, 4)),
+        "strided": dict(buf=torch.arange(32, dtype=torch.int64)[::2]),
+    }[case])
+    return args
+
+
+@pytest.mark.parametrize("case", ["keys_int32", "cnts_int64", "lengths",
+                                  "over_cap", "offset_0", "offset_past",
+                                  "buf_2d", "strided"])
+def test_merge_into_store_rejects_bad_arguments(case):
+    with pytest.raises(ValueError):
+        merge_into_store(**_bad_merge_args(case))
+
+
+def test_merge_into_store_has_no_route_off_cpu_and_cuda():
+    """A tensor on a device with no kernel raises; nothing falls back."""
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="no consolidation kernel"):
+        merge_into_store(torch.empty(4, dtype=torch.int64, **meta),
+                         torch.empty(4, dtype=torch.int32, **meta),
+                         torch.empty(8, dtype=torch.int64, **meta), 8, 4)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_stream_counter_off_cuda_loads_no_kernel(device, monkeypatch):
+    """Only a counter on a CUDA device loads the merge kernel's library."""
+    def refuse():
+        raise AssertionError("the kernel library was loaded")
+    monkeypatch.setattr(consolidate_cuda, "_library", refuse)
+    for mode in ("auto", "sort2", "merge"):
+        ts.StreamCounter(torch.device(device), buffer_cap=64, store_cap=64,
+                         mode=mode)
+
+
+def test_consolidate_ctypes_signatures_match_the_source():
+    """The wrapper declares every C parameter of csrc/consolidate.cu with
+    its width: ctypes passes an undeclared argument as a 32-bit int, which
+    would cut a pointer or a lane count."""
+    import ctypes
+    import re
+    src = consolidate_cuda.SOURCE.read_text()
+    width = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+             "int": ctypes.c_int, "long long": ctypes.c_longlong}
+    assert consolidate_cuda.ARGTYPES
+    for name, argtypes in consolidate_cuda.ARGTYPES.items():
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
+        assert params is not None, name
+        kinds = [re.sub(r"\s*\w+$", "", p.strip())
+                 for p in params.group(1).split(",") if p.strip()]
+        assert [width[kind] for kind in kinds] == argtypes, name
 
 
 @pytest.mark.parametrize("n", [256, 1024])
