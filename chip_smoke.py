@@ -6,7 +6,7 @@ Drives metacherchant_tpu_torch's paths (environment-finder in the exact and
 hashed regimes, kmer-counter -> reads-classifier, triple-reads-classifier,
 seq-cov, the three FMT tools, environment-assembler-finder, hic-pipeline,
 environment-finder-multi, the device contraction, the device BFS engines,
-the `sort` (each consolidation route), `merge`, `chunk`, `hash` and
+the `sort`, `merge`, `chunk`, `hash` and
 `sharded` counting engines, the sharded BFS, the scalar sliding-poly FIFO)
 at a real data size and checks them:
 
@@ -104,22 +104,20 @@ at a real data size and checks them:
                     against phase 5's files; run_sharded_bfs on phase 9's
                     wide frontier in every direction, both directions
                     against bfs_layered;
- 19. count-engines  count_kmers_device on the reads of phase 5 at k=31 under
-                    the sort engine's sort2 route, its default auto (merge-
-                    split at 2^25 + 2^25 lanes), MC_SORT_COMPACTION=shift,
-                    and the merge and chunk engines, and at k=55 under
-                    sort2, merge and chunk, each key for key against sort2,
-                    with consolidations by route, seconds, kernel launches
-                    and peak memory; one consolidation by each route at the
-                    slice's final geometry under torch.profiler (sort2,
-                    shift and merge-split lane for lane equal); the chunk
-                    engine's largest launch against the plain version with
-                    its share of the byte bound; the merge route's kernel
-                    (csrc/consolidate.cu) alone and with its sort at the
-                    benchmark's largest merge-route calls against the plain
-                    route on the card, key for key, with the byte bound and
-                    peak memory, and its launches (one per merge-split
-                    consolidation); environment-finder -k 31 under
+ 19. count-engines  count_kmers_device on the reads of phase 5 at k=31 and
+                    k=55 under the sort engine (consolidations up to 2^25 +
+                    2^25 lanes) and the merge and chunk engines, each key
+                    for key against sort's, with consolidations by engine,
+                    seconds, kernel launches and peak memory, and the merge
+                    kernel's launches (one per sort and chunk consolidation
+                    on the card); the merge engine's merge_rle_compact at
+                    the slice's final geometry under torch.profiler; the
+                    chunk engine's largest launch against the plain version
+                    with its share of the byte bound; the consolidation's
+                    kernel (csrc/consolidate.cu) alone and with its sort at
+                    the benchmark's largest calls against the plain
+                    sort-and-reduce on the card, key for key, with the byte
+                    bound and peak memory; environment-finder -k 31 under
                     MC_COUNT_ENGINE=merge and chunk against phase 5's
                     files;
  20. scalar-poly    build_environment_hashed for phase 8's three genes at
@@ -139,7 +137,6 @@ result.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import gc
 import json
@@ -2086,33 +2083,30 @@ def phase_sharded(rng, fq: str, small_fq: str, tmp: str, card: str) -> dict:
 
 
 class ConsolidationRoutes:
-    """Counts the consolidations made inside the block by route, with their
-    lane totals: the sort engine's sort2 (ops/sortcount.consolidate, or
-    _consolidate_full_split under MC_SORT_COMPACTION=shift) and merge-split
-    routes (ops/consolidate_cuda.merge_into_store: the kernel on the card),
-    and the merge engine's merge_rle_compact."""
+    """Counts the consolidations made inside the block, with their lane
+    totals: the sort and chunk engines' (ops/consolidate_cuda
+    .merge_into_store: the kernel on the card) and the merge engine's
+    merge_rle_compact."""
 
     def __enter__(self):
         from metacherchant_tpu_torch.ops import mergecount, sortcount
-        self.made = {"sort2": [], "shift": [], "merge-split": [],
-                     "merge_rle_compact": []}
-        targets = ((sortcount, "consolidate", "sort2"),
-                   (sortcount, "_consolidate_full_split", "shift"),
-                   (sortcount, "merge_into_store", "merge-split"),
-                   (mergecount, "merge_rle_compact", "merge_rle_compact"))
+        self.made = {"merge_into_store": [], "merge_rle_compact": []}
+        targets = ((sortcount, "merge_into_store"),
+                   (mergecount, "merge_rle_compact"))
         self.saved = [(mod, name, getattr(mod, name))
-                      for mod, name, _ in targets]
+                      for mod, name in targets]
 
         def counted(fn, route):
             def call(*args, **kw):
-                # lanes in: the store's (merge-split: its store_cap, as
-                # the JAX engine pads it) and the buffer's (or run's)
-                store = args[4] if route == "merge-split" else args[0].numel()
+                # lanes in: the store's (merge_into_store: its store_cap,
+                # as the JAX engine pads it) and the buffer's (or run's)
+                store = (args[4] if route == "merge_into_store"
+                         else args[0].numel())
                 self.made[route].append(store + args[2].numel())
                 return fn(*args, **kw)
             return call
-        for (mod, name, fn), (_, _, route) in zip(self.saved, targets):
-            setattr(mod, name, counted(fn, route))
+        for mod, name, fn in self.saved:
+            setattr(mod, name, counted(fn, name))
         return self
 
     def __exit__(self, *exc):
@@ -2124,20 +2118,6 @@ class ConsolidationRoutes:
         return ", ".join(
             f"{route} {len(n)} (lanes {min(n)}-{max(n)})"
             for route, n in self.made.items() if n) or "none"
-
-
-@contextlib.contextmanager
-def sort2_at_any_size():
-    """The sort engine's 'auto' mode consolidates by sort2 at every size
-    inside the block (the port's StreamCounter ceiling raised), so that
-    count_kmers_device runs the sort2 route at the slice's size."""
-    from metacherchant_tpu_torch.ops.sortcount import StreamCounter
-    ceiling = StreamCounter.SORT2_LANE_CEILING
-    StreamCounter.SORT2_LANE_CEILING = 1 << 62
-    try:
-        yield
-    finally:
-        StreamCounter.SORT2_LANE_CEILING = ceiling
 
 
 def _device_ms(fn, reps: int = 3) -> tuple[float | None, float]:
@@ -2156,12 +2136,10 @@ def _device_ms(fn, reps: int = 3) -> tuple[float | None, float]:
 
 
 def consolidation_ms(keys: np.ndarray, cnts: np.ndarray, card: str) -> dict:
-    """One consolidation by each route at the slice's final geometry: the
-    distinct 31-mers as a 2^25-lane store and a full 2^25-lane buffer of
-    their keys (90%) and new ones, and the merge engine's 2^25-lane store
-    with a run of 4 x 2^20 lanes. sort2, shift and merge-split return the
-    same full-length result, checked here; device ms by route."""
-    from metacherchant_tpu_torch.ops import bitonic, sortcount
+    """The merge engine's merge_rle_compact at the slice's final geometry:
+    the distinct 31-mers as a 2^25-lane store and a sorted run of 4 x 2^20
+    lanes of their keys (90%) and new ones; device ms and peak memory."""
+    from metacherchant_tpu_torch.ops import bitonic
     from metacherchant_tpu_torch.ops.kmers import SENTINEL
     dev = torch.device("cuda")
     rng = np.random.default_rng(19)
@@ -2170,54 +2148,31 @@ def consolidation_ms(keys: np.ndarray, cnts: np.ndarray, card: str) -> dict:
     store_c = torch.zeros(lanes, dtype=torch.int32, device=dev)
     store[:keys.size] = torch.from_numpy(keys).to(dev)
     store_c[:keys.size] = torch.from_numpy(cnts).to(dev)
-    pick = rng.integers(0, keys.size, lanes)
-    new = rng.random(lanes) < 0.1
-    buf = torch.from_numpy(np.where(new, rng.integers(0, 1 << 62, lanes),
-                                    keys[pick])).to(dev)
-    run = torch.sort(buf[:1 << 22]).values
-    routes = {
-        "sort2": lambda: sortcount._consolidate_full_split(
-            store, store_c, buf, lanes),
-        "shift": lambda: sortcount._consolidate_full_split(
-            store, store_c, buf, lanes),
-        "merge-split": lambda: sortcount._consolidate_merge_split(
-            store, store_c, buf, lanes),
-        "merge_rle_compact": lambda: bitonic.merge_rle_compact(
-            store, store_c, run),
-    }
-    out, results = {}, {}
-    for route, fn in routes.items():
-        env = {"MC_SORT_COMPACTION": "shift"} if route == "shift" else {}
-        os.environ.update(env)
-        try:
-            gc.collect()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            results[route] = [t.cpu() for t in fn()]
-            dev_ms, ev_ms = _device_ms(fn)
-            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-        finally:
-            for name in env:
-                del os.environ[name]
-        out[route] = {"device_ms": dev_ms, "event_ms": ev_ms,
-                      "lanes": results[route][0].numel(), "peak_gib": peak}
-        say("count-engines", f"one consolidation by {route}: "
-                             f"{results[route][0].numel()} lanes out, "
-                             f"{int(results[route][2])} distinct; device "
-                             + (f"{dev_ms:.3f} ms" if dev_ms is not None
-                                else "time not measured")
-                             + f", {ev_ms:.3f} ms between events, "
-                             f"{peak:.3f} GiB above the inputs ({card})")
-    for route in ("shift", "merge-split"):
-        check(all(torch.equal(a, b) for a, b in
-                  zip(results[route], results["sort2"], strict=True)),
-              f"the {route} consolidation differs from sort2's, lane for lane")
-    say("count-engines", "sort2, shift and merge-split: the same full-length "
-                         "result, lane for lane")
-    return out
+    n = 1 << 22
+    pick = rng.integers(0, keys.size, n)
+    new = rng.random(n) < 0.1
+    run = torch.sort(torch.from_numpy(np.where(
+        new, rng.integers(0, 1 << 62, n), keys[pick])).to(dev)).values
+    route = "merge_rle_compact"
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = [t.cpu() for t in bitonic.merge_rle_compact(store, store_c, run)]
+    dev_ms, ev_ms = _device_ms(
+        lambda: bitonic.merge_rle_compact(store, store_c, run))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    say("count-engines", f"one consolidation by {route}: "
+                         f"{out[0].numel()} lanes out, {int(out[2])} "
+                         f"distinct; device "
+                         + (f"{dev_ms:.3f} ms" if dev_ms is not None
+                            else "time not measured")
+                         + f", {ev_ms:.3f} ms between events, "
+                         f"{peak:.3f} GiB above the inputs ({card})")
+    return {route: {"device_ms": dev_ms, "event_ms": ev_ms,
+                    "lanes": out[0].numel(), "peak_gib": peak}}
 
 
-#: the largest merge-route consolidation of each counting cell of the
+#: the largest consolidation of each counting cell of the
 #: benchmark (store keys in, buffer lanes filled, the store's and the
 #: buffer's capacities), from its count.consolidate spans on seed 3000000021
 MERGE_SHAPES = {"fmt-k31.count": (118_420_347, 134_184_960, 1 << 27,
@@ -2227,14 +2182,14 @@ MERGE_SHAPES = {"fmt-k31.count": (118_420_347, 134_184_960, 1 << 27,
 
 
 def merge_kernel_ms(card: str) -> dict:
-    """The merge route's kernel (ops/consolidate_cuda) at the counting
+    """The consolidation's kernel (ops/consolidate_cuda) at the counting
     cells' largest call shapes: a store of random distinct keys and a
-    buffer of 90% store keys and 10% new ones, filled to the call's lanes. Times between CUDA events of
-    the kernel alone (on the sorted lanes), of the whole new consolidation
-    (torch.sort of the lanes, then the kernel) and of the plain route on
-    the card (the JAX package's merge-split at the padded total), beside
-    the bound: peaks.consolidate_bytes over 3.35 TB/s. The kernel's store
-    equals the plain route's, key for key."""
+    buffer of 90% store keys and 10% new ones, filled to the call's lanes.
+    Times between CUDA events of the kernel alone (on the sorted lanes), of
+    the whole consolidation (torch.sort of the lanes, then the kernel) and
+    of the plain sort-and-reduce (consolidate) on the card, beside the
+    bound: peaks.consolidate_bytes over 3.35 TB/s. The kernel's store
+    equals the plain version's, key for key."""
     from benchmark import peaks
     from metacherchant_tpu_torch.ops import consolidate_cuda as cc
     dev = torch.device("cuda")
@@ -2267,13 +2222,12 @@ def merge_kernel_ms(card: str) -> dict:
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        want = cc.merge_into_store_plain(keys, cnts, buf, lanes, store_cap)
+        want = cc.consolidate(keys, cnts, buf[:lanes])
         plain_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-        plain = _time_ms(lambda: cc.merge_into_store_plain(
-            keys, cnts, buf, lanes, store_cap), 1)
+        plain = _time_ms(lambda: cc.consolidate(keys, cnts, buf[:lanes]), 1)
         check(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
               f"{cell}: the merge kernel's store differs from the plain "
-              f"route's")
+              f"version's")
         del want
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
@@ -2294,7 +2248,7 @@ def merge_kernel_ms(card: str) -> dict:
                              f"{bound:.3f} ms): kernel {kernel:.3f} ms "
                              f"({100 * bound / kernel:.1f}%), sort + kernel "
                              f"{whole:.3f} ms ({100 * bound / whole:.2f}%, "
-                             f"{peak:.3f} GiB above the inputs), plain route "
+                             f"{peak:.3f} GiB above the inputs), plain "
                              f"{plain:.3f} ms ({plain_peak:.3f} GiB); key "
                              f"for key equal ({card})")
         del keys, cnts, buf, got
@@ -2303,15 +2257,14 @@ def merge_kernel_ms(card: str) -> dict:
 
 
 def phase_count_engines(fq: str, genes: str, tmp: str, card: str) -> dict:
-    """count_kmers_device on the slice's reads under the sort engine's
-    routes and the merge and chunk engines, each key for key against
-    sort2, with consolidations by route, seconds, kernel launches and peak
-    memory; one consolidation's device ms by route at the slice's final
-    geometry; the chunk engine's largest launch against the plain version
-    with its share of the byte bound; environment-finder -k 31 under
-    MC_COUNT_ENGINE=merge and chunk against the slice's files. Returns the
-    launches by path, the chunk launch's record and the consolidations'
-    device ms."""
+    """count_kmers_device on the slice's reads under the sort, merge and
+    chunk engines, each key for key against sort's, with consolidations by
+    engine, seconds, kernel launches and peak memory; merge_rle_compact's
+    device ms at the slice's final geometry; the chunk engine's largest
+    launch against the plain version with its share of the byte bound;
+    environment-finder -k 31 under MC_COUNT_ENGINE=merge and chunk against
+    the slice's files. Returns the launches by path, the chunk launch's
+    record and the consolidations' device ms."""
     from metacherchant_tpu_torch import trace
     from metacherchant_tpu_torch.counting import count_kmers_device
     from metacherchant_tpu_torch.ops import sortcount
@@ -2324,83 +2277,71 @@ def phase_count_engines(fq: str, genes: str, tmp: str, card: str) -> dict:
         chunk_calls.append((n, codes.clone(), starts.clone(), lens.clone()))
         return append(buf, offset, codes, starts, lens, offs, n, k)
 
-    runs = ((MAIN_K, "sort2", "sort"), (MAIN_K, "auto", "sort"),
-            (MAIN_K, "shift", "sort"), (MAIN_K, "merge", "merge"),
-            (MAIN_K, "chunk", "chunk"), (HASH_K, "sort2", "sort"),
-            (HASH_K, "merge", "merge"), (HASH_K, "chunk", "chunk"))
-    for k, label, engine in runs:
-        hasher = None if k <= 31 else "poly"
-        gc.collect()
-        torch.cuda.reset_peak_memory_stats()
-        if label == "shift":
-            os.environ["MC_SORT_COMPACTION"] = "shift"
-        if label == "chunk" and k == MAIN_K:
-            sortcount.append_ragged = captured
-        try:
-            with contextlib.ExitStack() as stack:
-                if label in ("sort2", "shift"):
-                    stack.enter_context(sort2_at_any_size())
-                routes = stack.enter_context(ConsolidationRoutes())
-                before = _launches()
-                merges_before = trace.counter("consolidate.launches")
-                t0 = time.perf_counter()
-                got = count_kmers_device([fq], k, hasher, device=dev,
-                                         engine=engine)
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-                launches[label, k] = _launches() - before
-                merges = trace.counter("consolidate.launches") - merges_before
-        finally:
-            os.environ.pop("MC_SORT_COMPACTION", None)
-            sortcount.append_ragged = append
-        if label == "sort2":
-            maps[k] = got
-        else:
-            check(np.array_equal(got.keys, maps[k].keys)
-                  and np.array_equal(got.counts, maps[k].counts),
-                  f"k={k} {label}: the map differs from sort2's")
-        say("count-engines", f"count_kmers_device k={k} {label} (engine "
-                             f"{engine}): {len(got)} distinct keys"
-                             + ("" if label == "sort2" else
-                                ", key for key equal to sort2's")
-                             + f"; {secs:.3f} s, kernel launches "
-                             f"{launches[label, k]}, peak device memory "
-                             f"{_peak_gib():.3f} GiB; consolidations: "
-                             f"{routes.summary()}; merge kernel launches "
-                             f"{merges} ({card})")
-        made = {r: len(n) for r, n in routes.made.items()}
-        check(merges == made["merge-split"],
-              f"k={k} {label}: {merges} merge kernel launches for "
-              f"{made['merge-split']} merge-split consolidations")
-        if label == "auto":
-            merge_launches = merges
-        if label in ("sort2", "shift"):
-            check(made["merge-split"] == 0 and made["merge_rle_compact"] == 0,
-                  f"k={k} {label} took another route: {made}")
-        if label == "shift":
-            check(made["shift"] > 0, f"no shift compaction: {made}")
-        if label == "auto":
-            check(max(routes.made["merge-split"], default=0) == 1 << 26,
-                  f"auto never consolidated by merge-split at 2^25 + 2^25 "
-                  f"lanes: {routes.summary()}")
-        if engine == "merge":
-            check(made["merge_rle_compact"] > 0
-                  and made["sort2"] + made["merge-split"] == 0,
-                  f"merge engine's consolidations: {made}")
-        if k == MAIN_K and engine != "chunk":
-            check(launches[label, k] == launches["sort2", k] > 0,
-                  f"k={k} {label}: {launches[label, k]} launches, sort2 "
-                  f"{launches['sort2', k]}")
-        if k > 31:
-            check(launches[label, k] == 0, f"k={k} {label}: "
-                                           f"{launches[label, k]} launches")
+    for k in (MAIN_K, HASH_K):
+        for engine in ("sort", "merge", "chunk"):
+            hasher = None if k <= 31 else "poly"
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            if engine == "chunk" and k == MAIN_K:
+                sortcount.append_ragged = captured
+            try:
+                with ConsolidationRoutes() as routes:
+                    before = _launches()
+                    merges_before = trace.counter("consolidate.launches")
+                    t0 = time.perf_counter()
+                    got = count_kmers_device([fq], k, hasher, device=dev,
+                                             engine=engine)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                    launches[engine, k] = _launches() - before
+                    merges = (trace.counter("consolidate.launches")
+                              - merges_before)
+            finally:
+                sortcount.append_ragged = append
+            if engine == "sort":
+                maps[k] = got
+            else:
+                check(np.array_equal(got.keys, maps[k].keys)
+                      and np.array_equal(got.counts, maps[k].counts),
+                      f"k={k} {engine}: the map differs from sort's")
+            say("count-engines", f"count_kmers_device k={k} engine "
+                                 f"{engine}: {len(got)} distinct keys"
+                                 + ("" if engine == "sort" else
+                                    ", key for key equal to sort's")
+                                 + f"; {secs:.3f} s, kernel launches "
+                                 f"{launches[engine, k]}, peak device memory "
+                                 f"{_peak_gib():.3f} GiB; consolidations: "
+                                 f"{routes.summary()}; merge kernel launches "
+                                 f"{merges} ({card})")
+            made = {r: len(n) for r, n in routes.made.items()}
+            check(merges == made["merge_into_store"],
+                  f"k={k} {engine}: {merges} merge kernel launches for "
+                  f"{made['merge_into_store']} consolidations")
+            if engine == "sort" and k == MAIN_K:
+                merge_launches = merges
+                check(max(routes.made["merge_into_store"], default=0)
+                      == 1 << 26,
+                      f"sort never consolidated at 2^25 + 2^25 lanes: "
+                      f"{routes.summary()}")
+            if engine == "merge":
+                check(made["merge_rle_compact"] > 0
+                      and made["merge_into_store"] == 0,
+                      f"merge engine's consolidations: {made}")
+            if k == MAIN_K and engine != "chunk":
+                check(launches[engine, k] == launches["sort", k] > 0,
+                      f"k={k} {engine}: {launches[engine, k]} launches, "
+                      f"sort {launches['sort', k]}")
+            if k > 31:
+                check(launches[engine, k] == 0, f"k={k} {engine}: "
+                                                f"{launches[engine, k]} "
+                                                f"launches")
     n_chunks = len(chunk_calls)
     check(0 < launches["chunk", MAIN_K] == n_chunks
-          < launches["sort2", MAIN_K] // 4,
+          < launches["sort", MAIN_K] // 4,
           f"chunk engine: {launches['chunk', MAIN_K]} launches, "
-          f"{n_chunks} appends, sort {launches['sort2', MAIN_K]}")
+          f"{n_chunks} appends, sort {launches['sort', MAIN_K]}")
     say("count-engines", f"chunk engine k={MAIN_K}: {n_chunks} launches "
-                         f"for the sort engine's {launches['sort2', MAIN_K]}"
+                         f"for the sort engine's {launches['sort', MAIN_K]}"
                          f", windows per launch "
                          f"{[c[0] for c in chunk_calls]}")
     n, codes, starts, lens = max(chunk_calls, key=lambda c: c[0])
@@ -2438,8 +2379,8 @@ def phase_count_engines(fq: str, genes: str, tmp: str, card: str) -> dict:
                              f"launches {run.launches}, peak device memory "
                              f"{_peak_gib():.3f} GiB ({card})")
     paths = {(f"environment-finder -k {MAIN_K} MC_COUNT_ENGINE={k}"
-              if label == "cli" else f"count_kmers_device -k {k} {label}"
-              + ("" if label in ("merge", "chunk") else " (sort engine)")): n
+              if label == "cli" else
+              f"count_kmers_device -k {k} MC_COUNT_ENGINE={label}"): n
              for (label, k), n in launches.items()}
     return {"launches": paths, "chunk": chunk_rec, "consolidation": cons,
             "merge_kernel": merge_kernel, "merge_launches": merge_launches}
@@ -2622,7 +2563,7 @@ def main() -> int:
         "route": "cuda",
         "source": "metacherchant_tpu_torch/csrc/consolidate.cu",
         "replaces": None,
-        "launches": {f"count_kmers_device -k {MAIN_K} auto (sort engine)":
+        "launches": {f"count_kmers_device -k {MAIN_K} MC_COUNT_ENGINE=sort":
                      engines["merge_launches"]},
         "bound_by": "bytes",
         "library_ms": None,

@@ -279,7 +279,8 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
     hasher None keys exactly, 'poly' or 'fnv1a' by hash.
 
     engine: 'sort' (the default; append buffer + sorted store,
-    ops/sortcount.StreamCounter, consolidating by its 'auto' mode), 'chunk'
+    ops/sortcount.StreamCounter, ops/consolidate_cuda.merge_into_store
+    merging the buffer into the store), 'chunk'
     (the same with one extraction call per chunk of batches,
     ops/sortcount.ChunkedStreamCounter), 'merge' (per-launch sorted runs +
     bitonic-merge consolidation, ops/mergecount.py), 'hash'

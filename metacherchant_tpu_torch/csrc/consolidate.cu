@@ -1,8 +1,9 @@
 // Merge of the sort engine's sorted buffer into its compact store, with the
 // reduce by key: one merge-path pass that counts, one that writes.
 //
-// Replaces no Pallas kernel. It replaces the JAX package's plain merge-split
-// route (metacherchant_tpu/ops/sortcount.py::_consolidate_merge_split: a
+// Replaces no Pallas kernel. On the card it replaces the JAX package's
+// consolidation routes, among them the merge-split
+// (metacherchant_tpu/ops/sortcount.py: a
 // bitonic merge of store and sorted buffer padded to a power of two, an
 // int64 cumsum, run-last marking and log2(n) shift stages), which the JAX
 // package builds from static-stride slices because its TPU compiler handles
@@ -14,7 +15,8 @@
 // raw keys, each of weight 1 (a SENTINEL key, int64 max, weighs 0 and is
 // never written). Out: the distinct non-SENTINEL keys of both, ascending,
 // each with its total weight, store counts clamped at 1e9 before the sum
-// and totals clamped at 1e9 -- the plain route's store bit for bit.
+// and totals clamped at 1e9 -- the plain version's store
+// (ops/consolidate_cuda.consolidate) bit for bit.
 //
 // What bounds it: bytes. The store's 12 bytes a key and the run's 8 bytes a
 // lane read once, the new store's 12 bytes a key written once

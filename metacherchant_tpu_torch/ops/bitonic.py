@@ -1,5 +1,5 @@
 """Bitonic merge and compaction primitives in plain torch (the `merge`
-engine's consolidation, and the units of the sort engine's merge-split).
+engine's consolidation).
 
 Counterpart of metacherchant_tpu/ops/bitonic.py. The JAX package builds
 these from static-stride slices and elementwise selects, the ops its TPU

@@ -1,23 +1,22 @@
-"""CUDA kernel: the sort engine's merge route, the sorted buffer merged into
-the compact store with the reduce by key.
+"""Merge a buffer of appended keys into the sort engine's compact store:
+the CUDA merge kernel on the card, the plain sort-and-reduce on the CPU.
 
-Replaces no Pallas kernel: on the card it takes the place of the JAX
-package's plain merge-split route (metacherchant_tpu/ops/sortcount.py
-::_consolidate_merge_split), some 52 eager passes over every lane of the
-power-of-two total. Its bound is peaks.consolidate_bytes (the store read
-once, the buffer's filled lanes read once, the new store written once) over
-3.35 TB/s; the design that nears it (a merge-path partition into tiles, a
-counting pass, a scan of the tiles and a writing pass) is noted in
+The kernel replaces no Pallas kernel: on the card it takes the place of the
+JAX package's consolidation routes (the sort2 and merge-split routes of
+metacherchant_tpu/ops/sortcount.py), full-length passes over every lane of
+the padded total. Its bound is peaks.consolidate_bytes (the store read
+once, the buffer's filled lanes read once, the new store written once)
+over 3.35 TB/s; the design that nears it (a merge-path partition into
+tiles, a counting pass, a scan of the tiles and a writing pass) is noted in
 csrc/consolidate.cu. It is compiled with nvcc for sm_90a at its first use
 into the port's build directory and called through ctypes on the current
 CUDA stream.
 
-merge_into_store takes the plain version on CPU tensors: the JAX route as
-it is, on the store padded to store_cap lanes, cut to its distinct keys
-(merge_into_store_plain). On CUDA tensors it sorts the buffer's filled
-lanes with torch.sort and launches the kernel, or raises. Each launch adds
-1 to the counter consolidate.launches (trace.py), so that a run can show
-its merge-route consolidations went through the kernel.
+merge_into_store takes the plain version, consolidate, on CPU tensors. On
+CUDA tensors it sorts the buffer's filled lanes with torch.sort and
+launches the kernel; on any other device it raises. Each launch adds 1 to
+the counter consolidate.launches (trace.py), so that a run can show its
+consolidations went through the kernel.
 """
 from __future__ import annotations
 
@@ -31,9 +30,13 @@ import torch
 from .. import trace
 from ..native import BUILD_DIR
 from .extract_cuda import build_library
+from .kmers import SENTINEL
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "consolidate.cu"
 _LIB = BUILD_DIR / "libconsolidate.so"
+#: store counts clamp far above the 32767 output saturation, so repeated
+#: consolidations cannot overflow int32 yet keep min(total, 32767)
+_COUNT_CLAMP = 1_000_000_000
 
 
 def build() -> str:
@@ -100,19 +103,26 @@ def _check(store_keys: torch.Tensor, store_cnts: torch.Tensor,
                          f"buffer")
 
 
-def merge_into_store_plain(store_keys: torch.Tensor, store_cnts: torch.Tensor,
-                           buf: torch.Tensor, offset: int, store_cap: int
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version: the JAX package's merge-split route
-    (sortcount._consolidate_merge_split) on the store as the JAX engine
-    holds it, store_cap lanes with SENTINEL behind, cut to its distinct
-    keys."""
-    # sortcount imports this module
-    from .sortcount import _consolidate_merge_split, _pad_store
-    keys, cnts, nd = _consolidate_merge_split(
-        *_pad_store(store_keys, store_cnts, store_cap), buf, offset)
-    nd = int(nd)
-    return keys[:nd].clone(), cnts[:nd].clone()
+def consolidate(store_keys: torch.Tensor, store_cnts: torch.Tensor,
+                new_keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version: merge appended keys (SENTINEL lanes allowed)
+    into a sorted store by one sort of both.
+
+    Weights: store counts, 1 per appended lane, 0 for SENTINEL. Returns the
+    new store: distinct keys ascending and int32 counts clamped at 1e9."""
+    keys = torch.cat([store_keys, new_keys])
+    w = torch.cat([store_cnts.to(torch.int64),
+                   torch.ones_like(new_keys)])
+    w.masked_fill_(keys == SENTINEL, 0)
+    s, order = torch.sort(keys)
+    pc = torch.cumsum(w[order], 0)
+    last = torch.ones_like(s, dtype=torch.bool)
+    last[:-1] = s[1:] != s[:-1]
+    last &= s != SENTINEL
+    out_keys = s[last]
+    pref = pc[last]
+    cnts = torch.diff(pref, prepend=pref.new_zeros(1))
+    return out_keys, cnts.clamp_max_(_COUNT_CLAMP).to(torch.int32)
 
 
 def _raise_on(err: int, entry: str) -> None:
@@ -161,17 +171,17 @@ def _merge_sorted_run(store_keys: torch.Tensor, store_cnts: torch.Tensor,
 def merge_into_store(store_keys: torch.Tensor, store_cnts: torch.Tensor,
                      buf: torch.Tensor, offset: int, store_cap: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The merge route: merge buf[:offset] (SENTINEL lanes weigh 0) into the
-    compact store (distinct keys ascending, int32 counts; at most store_cap
-    of them) and return the new compact store, counts clamped at 1e9.
+    """Merge buf[:offset] (SENTINEL lanes weigh 0) into the compact store
+    (distinct keys ascending, int32 counts; at most store_cap of them) and
+    return the new compact store, counts clamped at 1e9.
 
-    CPU tensors take the plain version; CUDA tensors torch.sort of the
-    filled lanes and the kernel. A caller that passes its only reference to
-    `buf` has it freed once its lanes are sorted."""
+    CPU tensors take the plain version (consolidate); CUDA tensors
+    torch.sort of the filled lanes and the kernel. A caller that passes its
+    only reference to `buf` has it freed on the card once its lanes are
+    sorted."""
     _check(store_keys, store_cnts, buf, offset, store_cap)
     if buf.device.type == "cpu":
-        return merge_into_store_plain(store_keys, store_cnts, buf, offset,
-                                      store_cap)
+        return consolidate(store_keys, store_cnts, buf[:offset])
     if buf.device.type != "cuda":
         raise ValueError(f"no consolidation kernel for device {buf.device}")
     run = torch.sort(buf[:offset]).values

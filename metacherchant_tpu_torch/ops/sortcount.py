@@ -12,48 +12,36 @@ ChunkedStreamCounter:
                 or write the exact keys of ragged rows of a flat code array,
                 every window of every row and nothing else (append_ragged,
                 the same kernel's ragged entry)
-  consolidate:  when the buffer is full, merge it into the sorted (key,
-                count) store by one of the JAX package's routes (`mode`):
-                sort2 -- one sort of store + buffer, an int64 cumsum of the
-                weights, the run-last lanes kept by a boolean mask, counts as
-                the adjacent differences of their cumsums (consolidate); with
-                MC_SORT_COMPACTION=shift at a power-of-two total, the
-                run-lasts move to the front by shift stages instead
-                (_consolidate_full_split); merge -- a sort of the buffer
-                alone, a bitonic merge into the sorted store, the same
-                cumsum and shift stages (_consolidate_merge_split), which
-                runs as it is on the CPU; on the card the sorted buffer's
-                lanes go into the store through one merge-path kernel
-                (ops/consolidate_cuda.merge_into_store)
+  consolidate:  when the buffer is full, merge its filled lanes into the
+                sorted (key, count) store (ops/consolidate_cuda
+                .merge_into_store: on the card a sort of the lanes and one
+                merge-path kernel, on the CPU the plain sort-and-reduce,
+                consolidate)
   finalize:     last consolidation; counts clamp at 32767
                 (itmo:utils/NumUtils.java:21-26)
 
-Every route gives the JAX route's store. The JAX engine defers the
-store-size readback to the next consolidation; here each consolidation
-reads it at once, so the store is compact (its keys sorted, no SENTINEL
-padding), while the growth it calls for is applied where JAX applies it,
-at the next consolidation, so that buffer and store keep the JAX sizes
-(_resolve): on padded batches both packages consolidate at the same
-batches.
+The store is the JAX StreamCounter's under each of its consolidation routes
+(its `mode` and its compaction switch, which pick among routes its TPU
+compiler needs and change no output, have no counterpart here). The JAX
+engine defers the store-size readback to the next consolidation; here each
+consolidation reads it at once, so the store is compact (its keys sorted,
+no SENTINEL padding), while the growth it calls for is applied where JAX
+applies it, at the next consolidation, so that buffer and store keep the
+JAX sizes (_resolve): on padded batches both packages consolidate at the
+same batches.
 """
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
 
 from .. import trace
 from ..kmer_map import SATURATION
-from .bitonic import (_displacement, _half_clean, _shift_compact_stages)
 from . import consolidate_cuda
-from .consolidate_cuda import merge_into_store
+# consolidate is also this module's for parallel/sharded_count.py
+from .consolidate_cuda import consolidate, merge_into_store
 from .extract_cuda import extract_append, extract_append_ragged
 from .kmers import SENTINEL, hash_canonical_kmers
-
-#: store counts clamp far above the 32767 output saturation, so repeated
-#: consolidations cannot overflow int32 yet keep min(total, 32767)
-_COUNT_CLAMP = 1_000_000_000
 
 
 def append_codes(buf: torch.Tensor, offset: int, codes: torch.Tensor,
@@ -88,190 +76,17 @@ def append_ragged(buf: torch.Tensor, offset: int, codes: torch.Tensor,
     return offset + n
 
 
-def consolidate(store_keys: torch.Tensor, store_cnts: torch.Tensor,
-                new_keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Merge appended keys (SENTINEL lanes allowed) into a sorted store.
-
-    Weights: store counts, 1 per appended lane, 0 for SENTINEL. Returns the
-    new store: distinct keys ascending and int32 counts clamped at 1e9."""
-    keys = torch.cat([store_keys, new_keys])
-    w = torch.cat([store_cnts.to(torch.int64),
-                   torch.ones_like(new_keys)])
-    w.masked_fill_(keys == SENTINEL, 0)
-    s, order = torch.sort(keys)
-    pc = torch.cumsum(w[order], 0)
-    last = torch.ones_like(s, dtype=torch.bool)
-    last[:-1] = s[1:] != s[:-1]
-    last &= s != SENTINEL
-    out_keys = s[last]
-    pref = pc[last]
-    cnts = torch.diff(pref, prepend=pref.new_zeros(1))
-    return out_keys, cnts.clamp_max_(_COUNT_CLAMP).to(torch.int32)
-
-
-# --- the JAX package's full-length consolidations. Each takes a store of
-# store_cap lanes (distinct keys ascending, SENTINEL behind) and the whole
-# append buffer with its fill `offset`, and returns (keys, counts,
-# n_distinct) at the full merged length, the distinct keys ascending at
-# the front, (SENTINEL, 0) behind, so that nothing is lost whatever the
-# store's size (metacherchant_tpu/ops/sortcount.py:195-373).
-
-def _masked(buf: torch.Tensor, offset: int) -> torch.Tensor:
-    """The buffer with every lane at or past `offset` set to SENTINEL."""
-    out = buf.clone()
-    out[offset:] = SENTINEL
-    return out
-
-
-def _full(keys: torch.Tensor, cnts: torch.Tensor, n: int
-          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """A compact store as the full-length result of n lanes."""
-    nd = keys.numel()
-    return (torch.cat([keys, keys.new_full((n - nd,), SENTINEL)]),
-            torch.cat([cnts, cnts.new_zeros(n - nd)]),
-            torch.tensor(nd, dtype=torch.int32, device=keys.device))
-
-
-def _shift_compaction(total: int) -> bool:
-    """MC_SORT_COMPACTION=shift, which applies to power-of-two totals only
-    (any other total takes the sort2 compaction); read on every call."""
-    return (os.environ.get("MC_SORT_COMPACTION") == "shift"
-            and total & (total - 1) == 0)
-
-
-def _consolidate_full_split(store_keys: torch.Tensor,
-                            store_cnts: torch.Tensor, buf: torch.Tensor,
-                            offset: int
-                            ) -> tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
-    """The sort2 route: one sort of store + buffer, then either the
-    cumsum-and-mask compaction (consolidate) or, under
-    MC_SORT_COMPACTION=shift at a power-of-two total, the shift stages."""
-    n = store_keys.numel() + buf.numel()
-    if not _shift_compaction(n):
-        keys, cnts = consolidate(store_keys, store_cnts, buf[:offset])
-        return _full(keys, cnts, n)
-    keys = torch.cat([store_keys, _masked(buf, offset)])
-    w = torch.cat([store_cnts, torch.ones_like(buf, dtype=torch.int32)])
-    w.masked_fill_(keys == SENTINEL, 0)
-    s, order = torch.sort(keys)
-    return _shift_compact(s, w[order])
-
-
-def _shift_compact(keys: torch.Tensor, w: torch.Tensor
-                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Run-last marking and shift compaction of a sorted multiset of a
-    power-of-two lane count (the merge route's tail, and the sort2 route's
-    under MC_SORT_COMPACTION=shift)."""
-    key2, pref2, d = _prefix_mark(keys, w)
-    key2, pref2 = _shift_compact_stages(key2, pref2, d)
-    return _diff_finish(key2, pref2)
-
-
-def _sort_keys(buf: torch.Tensor, offset: int) -> torch.Tensor:
-    """The buffer, its unfilled tail masked to SENTINEL, sorted."""
-    return torch.sort(_masked(buf, offset)).values
-
-
-def _merge_prep(store_keys: torch.Tensor, store_cnts: torch.Tensor,
-                sorted_buf: torch.Tensor, pad: int
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Store ascending ++ `pad` SENTINEL lanes ++ the sorted buffer
-    reversed: one bitonic sequence of a power-of-two length. Store weights
-    are its counts clamped at 1e9, buffer lanes weigh 1, SENTINEL 0."""
-    sw = torch.where(store_keys == SENTINEL, 0,
-                     store_cnts.clamp_max(_COUNT_CLAMP)).to(torch.int32)
-    bw = (sorted_buf != SENTINEL).to(torch.int32)
-    keys = torch.cat([store_keys, sorted_buf.new_full((pad,), SENTINEL),
-                      sorted_buf.flip(0)])
-    w = torch.cat([sw, bw.new_zeros(pad), bw.flip(0)])
-    return keys, w
-
-
-def _prefix_mark(keys: torch.Tensor, w: torch.Tensor
-                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Inclusive int64 cumsum of the weights kept at run-last lanes
-    ((SENTINEL, 0) elsewhere), and each kept lane's displacement (the holes
-    before it) for the shift compaction."""
-    pc = torch.cumsum(w.to(torch.int64), 0)
-    real = torch.ones_like(keys, dtype=torch.bool)
-    real[:-1] = keys[1:] != keys[:-1]
-    real &= keys != SENTINEL
-    return (torch.where(real, keys, SENTINEL), torch.where(real, pc, 0),
-            _displacement(real))
-
-
-def _diff_finish(keys_c: torch.Tensor, pref_c: torch.Tensor
-                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Counts as adjacent differences of the compacted cumsums, clamped at
-    1e9; n_distinct as a 0-d int32 tensor."""
-    prev = torch.cat([pref_c.new_zeros(1), pref_c[:-1]])
-    sentinel = keys_c == SENTINEL
-    cnts = torch.where(sentinel, 0, pref_c - prev)
-    cnts = cnts.clamp_max(_COUNT_CLAMP).to(torch.int32)
-    return keys_c, cnts, (~sentinel).sum(dtype=torch.int32)
-
-
-def _pad_store(keys: torch.Tensor, cnts: torch.Tensor, cap: int
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """A compact store as the JAX engine holds it: `cap` lanes, (SENTINEL,
-    0) behind its keys."""
-    pad = cap - keys.numel()
-    return (torch.cat([keys, keys.new_full((pad,), SENTINEL)]),
-            torch.cat([cnts, cnts.new_zeros(pad)]))
-
-
-def _consolidate_merge_split(store_keys: torch.Tensor,
-                             store_cnts: torch.Tensor, buf: torch.Tensor,
-                             offset: int
-                             ) -> tuple[torch.Tensor, torch.Tensor,
-                                        torch.Tensor]:
-    """The merge route: sort the buffer alone, bitonic-merge it into the
-    already sorted store (the total padded to a power of two on the buffer
-    side), then prefix-mark and shift-compact. The JAX package groups its
-    stages four to a compiled unit; in torch each stage is its own ops
-    either way, with the same lanes after every stage.
-
-    A caller that passes its only reference to `buf` frees it before the
-    stages run."""
-    raw = store_keys.numel() + buf.numel()
-    n = 1 << (raw - 1).bit_length()
-    sorted_buf = _sort_keys(buf, offset)
-    del buf
-    keys, w = _merge_prep(store_keys, store_cnts, sorted_buf, n - raw)
-    del sorted_buf
-    stride = n // 2
-    while stride >= 1:
-        keys, (w,) = _half_clean(keys, [w], stride)
-        stride //= 2
-    return _shift_compact(keys, w)
-
-
 class StreamCounter:
-    """Device streaming counter: append buffer + compact sorted store.
-
-    mode: 'sort2' (consolidate by one sort of store + buffer), 'merge' (sort
-    the buffer alone and bitonic-merge it into the store) or 'auto' (merge
-    above SORT2_LANE_CEILING total lanes), as the JAX StreamCounter."""
-
-    #: the JAX package's sort2 ceiling (metacherchant_tpu/ops/sortcount.py
-    #: :438-445): the widest two-operand sort its TPU compile service was
-    #: measured to finish. It is a limit of that compiler, not a fact of
-    #: the H100 (torch.sort has none); 'auto' keeps it so that the port
-    #: consolidates where and how the JAX package does.
-    SORT2_LANE_CEILING = 1 << 24
+    """Device streaming counter: append buffer + compact sorted store; every
+    consolidation is merge_into_store."""
 
     def __init__(self, device: torch.device, buffer_cap: int = 1 << 24,
-                 store_cap: int = 1 << 22, mode: str = "auto"):
-        if mode not in ("auto", "sort2", "merge"):
-            raise ValueError(
-                f"mode must be 'auto', 'sort2' or 'merge'; got {mode!r}")
+                 store_cap: int = 1 << 22):
         self.device = torch.device(device)
-        if self.device.type == "cuda" and mode != "sort2":
+        if self.device.type == "cuda":
             # the merge kernel is built and loaded with the counter, not in
-            # the first merge-route consolidation of a run
+            # the first consolidation of a run
             consolidate_cuda.load()
-        self.mode = mode
         self.buffer_cap = buffer_cap
         self.store_cap = store_cap
         self.buf = torch.empty(buffer_cap, dtype=torch.int64,
@@ -336,13 +151,6 @@ class StreamCounter:
                                              2 * self.store_cap))))
         self.buffer_cap = total - self.store_cap
 
-    def uses_merge(self) -> bool:
-        """Whether the next consolidation takes the merge route: JAX's
-        total is its padded store plus the whole buffer."""
-        total = self.store_cap + self.buf.numel()
-        return self.mode == "merge" or (
-            self.mode == "auto" and total > self.SORT2_LANE_CEILING)
-
     def _take_buffer(self) -> torch.Tensor:
         buf, self.buf = self.buf, None
         return buf
@@ -351,38 +159,21 @@ class StreamCounter:
         if self.offset == 0:
             return
         self._resolve()
-        use_merge = self.uses_merge()
-        shift = _shift_compaction(self.store_cap + self.buf.numel())
         with trace.span("count.consolidate",
-                        route=("merge_split" if use_merge else
-                               "full_split" if shift else "sort2"),
                         store_in=self.store_keys.numel(),
                         lanes=self.offset) as sp:
-            if use_merge:
-                # the buffer goes in as the only reference: on the card it
-                # is freed once its filled lanes are sorted
-                self.store_keys, self.store_cnts = merge_into_store(
-                    self.store_keys, self.store_cnts, self._take_buffer(),
-                    self.offset, self.store_cap)
-            elif shift:
-                keys, cnts, nd = _consolidate_full_split(
-                    *_pad_store(self.store_keys, self.store_cnts,
-                                self.store_cap),
-                    self._take_buffer(), self.offset)
-                nd = int(nd)
-                self.store_keys, self.store_cnts = (keys[:nd].clone(),
-                                                    cnts[:nd].clone())
-            else:
-                self.store_keys, self.store_cnts = consolidate(
-                    self.store_keys, self.store_cnts, self.buf[:self.offset])
+            # the buffer goes in as the only reference: on the card it is
+            # freed once its filled lanes are sorted
+            self.store_keys, self.store_cnts = merge_into_store(
+                self.store_keys, self.store_cnts, self._take_buffer(),
+                self.offset, self.store_cap)
             sp.set(store_out=self.store_keys.numel())
         self.offset = 0
-        # keep buffer >= store so merge-route padding stays bounded
+        # buffer >= store, as the JAX engine keeps it (which bounds its
+        # merge route's padding)
         self.buffer_cap = max(self.buffer_cap, self.store_cap)
-        if self.buf is None or self.buf.numel() != self.buffer_cap:
-            self.buf = None  # the old buffer goes before the new one comes
-            self.buf = torch.empty(self.buffer_cap, dtype=torch.int64,
-                                   device=self.device)
+        self.buf = torch.empty(self.buffer_cap, dtype=torch.int64,
+                               device=self.device)
 
     def finalize(self) -> tuple[np.ndarray, np.ndarray]:
         """Key-sorted (keys, counts) on the host, counts clamped at 32767."""

@@ -1,9 +1,8 @@
-"""The merge route's CUDA kernel (ops/consolidate_cuda.py) on the card
-against its plain version, bit for bit: keys, counts and length, on edge
-cases of the store, the buffer's fill and the keys, and on random
-geometries up to 2^24 lanes; StreamCounter in `merge` and `auto` mode on
-the card against the CPU after every batch, with the kernel's launches
-counted.
+"""The consolidation's CUDA kernel (ops/consolidate_cuda.py) on the card
+against its plain version (consolidate), bit for bit: keys, counts and
+length, on edge cases of the store, the buffer's fill and the keys, and on
+random geometries up to 2^24 lanes; StreamCounter on the card against the
+CPU after every batch, with the kernel's launches counted.
 
 They skip where torch sees no CUDA device. This file imports no JAX:
 
@@ -16,6 +15,7 @@ import torch
 
 from metacherchant_tpu_torch import trace
 from metacherchant_tpu_torch.ops import consolidate_cuda
+from metacherchant_tpu_torch.ops.consolidate_cuda import consolidate
 from metacherchant_tpu_torch.ops.kmers import SENTINEL
 from metacherchant_tpu_torch.ops.sortcount import StreamCounter
 
@@ -102,6 +102,10 @@ CASES = ["empty_store", "one_lane_store", "offset_1", "partial_offset",
          "full_buffer", "long_run", "clamp", "negative", "sentinel_minus_1"]
 
 
+def _plain(keys, cnts, buf, offset, store_cap):
+    return consolidate(keys, cnts, buf[:offset])
+
+
 def _run(fn, d, keys, cnts, buf, offset, store_cap):
     out = fn(torch.from_numpy(keys).to(d), torch.from_numpy(cnts).to(d),
              torch.from_numpy(buf).to(d), offset, store_cap)
@@ -125,8 +129,7 @@ def test_kernel_matches_plain_on_edge_cases(cuda, name):
                offset, store_cap)
     assert trace.counter("consolidate.launches") == before + 1
     for d in (cuda, CPU):
-        _same(got, _run(consolidate_cuda.merge_into_store_plain, d, keys,
-                        cnts, buf, offset, store_cap))
+        _same(got, _run(_plain, d, keys, cnts, buf, offset, store_cap))
     assert got[0].numel() > 0
     if name == "long_run":
         hot = keys[keys.size // 2]
@@ -149,8 +152,7 @@ def test_kernel_matches_plain_on_random_geometries(cuda, seed):
     store_cap = max(keys.size, 1)
     got = _run(consolidate_cuda.merge_into_store, cuda, keys, cnts, buf,
                offset, store_cap)
-    _same(got, _run(consolidate_cuda.merge_into_store_plain, cuda, keys,
-                    cnts, buf, offset, store_cap))
+    _same(got, _run(_plain, cuda, keys, cnts, buf, offset, store_cap))
 
 
 def _codes(seed: int, rows: int, length: int) -> np.ndarray:
@@ -160,22 +162,16 @@ def _codes(seed: int, rows: int, length: int) -> np.ndarray:
     return codes
 
 
-@pytest.mark.parametrize("mode", ["merge", "auto"])
-def test_stream_counter_merge_route_on_card_matches_cpu(cuda, mode):
+def test_stream_counter_merge_route_on_card_matches_cpu(cuda):
     """StreamCounter on the card against the CPU after every batch, with
-    store growth; under 'auto' the ceiling is lowered on the instances so
-    that the merge route runs. Every merge-route consolidation on the card
-    is one launch of the kernel."""
-    caps = dict(buffer_cap=3 << 14, store_cap=1 << 14, mode=mode)
+    store growth. Every consolidation on the card is one launch of the
+    kernel."""
+    caps = dict(buffer_cap=3 << 14, store_cap=1 << 14)
     counters = {d: StreamCounter(d, **caps) for d in (cuda, CPU)}
-    if mode == "auto":
-        for sc in counters.values():
-            sc.SORT2_LANE_CEILING = 1 << 15
     with trace.recording() as rec:
         for seed in range(48):  # batches of 8,320 keys
             codes = torch.from_numpy(_codes(seed, 64, 150))
             for d, sc in counters.items():
-                assert sc.uses_merge()
                 sc.add_codes(codes.to(d), 21)
             gpu, cpu = counters.values()
             assert torch.equal(gpu.store_keys.cpu(), cpu.store_keys)
@@ -185,16 +181,14 @@ def test_stream_counter_merge_route_on_card_matches_cpu(cuda, mode):
         got, want = (sc.finalize() for sc in counters.values())
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
     assert gpu.store_cap > caps["store_cap"]
-    merges = [s for s in rec.spans if s.name == "count.consolidate"
-              and s.attrs["route"] == "merge_split"]
-    # the CPU's consolidations add no launch
-    assert rec.counters["consolidate.launches"] == len(merges) // 2 > 2
+    spans = [s for s in rec.spans if s.name == "count.consolidate"]
+    # both counters consolidate at the same batches; the CPU's add no launch
+    assert rec.counters["consolidate.launches"] == len(spans) // 2 > 2
 
 
-@pytest.mark.parametrize("mode", ["merge", "auto"])
-def test_stream_counter_loads_the_kernel_when_made(cuda, mode):
-    """A counter that may take the merge route loads the kernel's library
-    when it is made, so that a run's first merge pays no build."""
+def test_stream_counter_loads_the_kernel_when_made(cuda):
+    """A counter on the card loads the kernel's library when it is made,
+    so that a run's first consolidation pays no build."""
     consolidate_cuda._load_library.cache_clear()
-    StreamCounter(cuda, buffer_cap=1 << 10, store_cap=1 << 10, mode=mode)
+    StreamCounter(cuda, buffer_cap=1 << 10, store_cap=1 << 10)
     assert consolidate_cuda._load_library.cache_info().currsize == 1

@@ -481,15 +481,11 @@ def test_merge_and_chunk_engines_on_card_match_sort(cuda, k, hasher,
         assert np.array_equal(maps[engine].counts, maps["sort"].counts)
 
 
-@pytest.mark.parametrize("compaction", ["sort2", "shift"])
-@pytest.mark.parametrize("mode", ["auto", "sort2", "merge"])
-def test_stream_counter_modes_on_card_match_cpu(cuda, mode, compaction,
-                                                monkeypatch):
-    """StreamCounter in each consolidation mode on the card: the CPU's
-    store after every batch (store growth included)."""
-    monkeypatch.setenv("MC_SORT_COMPACTION", compaction)
+def test_stream_counter_modes_on_card_match_cpu(cuda):
+    """StreamCounter on the card: the CPU's store after every batch (store
+    growth included)."""
     from metacherchant_tpu_torch.ops.sortcount import StreamCounter
-    caps = dict(buffer_cap=3 << 14, store_cap=1 << 14, mode=mode)
+    caps = dict(buffer_cap=3 << 14, store_cap=1 << 14)
     counters = {d: StreamCounter(d, **caps)
                 for d in (cuda, torch.device("cpu"))}
     for seed in range(48):  # batches of 8,320 keys, below every buffer size
@@ -505,9 +501,9 @@ def test_stream_counter_modes_on_card_match_cpu(cuda, mode, compaction,
 
 
 def test_bitonic_and_merge_split_on_card_match_cpu(cuda):
-    """The bitonic primitives and both full-length consolidations on the
-    card: the CPU's lanes, bit for bit, at 2^18 and 3·2^17 lanes."""
-    from metacherchant_tpu_torch.ops import bitonic, sortcount
+    """The bitonic primitives on the card: the CPU's lanes, bit for bit, at
+    2^18 lanes."""
+    from metacherchant_tpu_torch.ops import bitonic
     rng = np.random.default_rng(12)
     store_n, buf_n = 1 << 17, 1 << 18
     keys = np.unique(rng.integers(0, 1 << 40, store_n))[:store_n - 100]
@@ -522,10 +518,6 @@ def test_bitonic_and_merge_split_on_card_match_cpu(cuda):
         "bitonic_merge": (bitonic.bitonic_merge, (store, run, cnts,
                                                   np.ones_like(cnts))),
         "merge_rle_compact": (bitonic.merge_rle_compact, (store, cnts, run)),
-        "merge_split": (sortcount._consolidate_merge_split,
-                        (store, cnts, buf, buf_n - 5)),
-        "full_split": (sortcount._consolidate_full_split,
-                       (store[:buf_n // 2], cnts[:buf_n // 2], buf, 7)),
     }
     for name, (fn, args) in cases.items():
         outs = {}

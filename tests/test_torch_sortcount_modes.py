@@ -1,14 +1,14 @@
-"""The sort engine's consolidation routes against the JAX package's:
-`sort2` (with the sort2 or the MC_SORT_COMPACTION=shift compaction),
-`merge` (the merge-split: buffer sort, bitonic merge, shift compaction;
-on the CPU the plain version of ops/consolidate_cuda.merge_into_store)
-and `auto`.
+"""The sort engine's one consolidation (ops/consolidate_cuda
+.merge_into_store, on the CPU the plain sort-and-reduce) against each of
+the JAX package's consolidation routes: `sort2` (with the sort2 or the
+MC_SORT_COMPACTION=shift compaction) and `merge` (the merge-split: buffer
+sort, bitonic merge, shift compaction), which its `mode` selects.
 
-The full-length results of one consolidation are compared at the same
-(store, buffer) geometry, at totals that are and are not powers of two;
-StreamCounter runs are compared after every batch (store, offset, buffer
-and store sizes), with `mode=` passed on both sides. All comparisons are
-bit-exact: keys, counts and n_distinct.
+One consolidation is compared at the same (store, buffer) geometry, at
+totals that are and are not powers of two and on edge cases, the JAX
+result cut to its n_distinct; StreamCounter runs are compared after every
+batch (store, offset, buffer and store sizes) against the JAX counter in
+each mode. All comparisons are bit-exact: keys, counts and n_distinct.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -44,6 +44,39 @@ def _geometry(seed: int, store_n: int, buf_n: int, offset: int):
 
 GEOMETRIES = [(256, 768, 700), (256, 700, 700), (512, 512, 3),
               (1024, 3072, 3072)]
+EDGE_CASES = ["empty_store", "offset_1", "full_store_new_keys",
+              "clamp_repeats"]
+
+
+def _case(case):
+    """(store, counts, buffer, offset) of a geometry (store lanes, buffer
+    lanes, offset) or of a named edge case (512 + 512 lanes): an empty
+    store; a buffer filled to one lane; a store with no SENTINEL lane and a
+    buffer of new keys only; buffer keys repeated onto store counts at or
+    near the 1e9 clamp."""
+    if not isinstance(case, str):
+        store_n, buf_n, offset = case
+        return _geometry(store_n + buf_n, store_n, buf_n, offset)
+    rng = np.random.default_rng(EDGE_CASES.index(case))
+    store = np.full(512, SENTINEL, np.int64)
+    cnts = np.zeros(512, np.int32)
+    buf = rng.integers(0, 4000, 512).astype(np.int64)
+    offset = 512
+    if case == "offset_1":
+        store, cnts, buf, _ = _geometry(5, 512, 512, 512)
+        offset = 1
+    elif case == "full_store_new_keys":
+        store = np.sort(rng.choice(4000, 512, replace=False)).astype(np.int64)
+        cnts = rng.integers(1, 40, 512).astype(np.int32)
+        buf = rng.integers(4000, 6000, 512).astype(np.int64)
+    elif case == "clamp_repeats":
+        keys = np.sort(rng.choice(4000, 300, replace=False)).astype(np.int64)
+        store[:300] = keys
+        cnts[:300] = rng.choice([999_999_990, 1_000_000_000, 2_000_000_000,
+                                 np.iinfo(np.int32).max], 300)
+        buf = keys[rng.integers(0, 300, 512)]
+    buf[rng.random(buf.size) < 0.1] = SENTINEL
+    return store, cnts, buf, offset
 
 
 def _same(jax_out, port_out) -> None:
@@ -53,52 +86,31 @@ def _same(jax_out, port_out) -> None:
         assert np.array_equal(j, t)
 
 
-@pytest.mark.parametrize("compaction", ["sort2", "shift"])
-@pytest.mark.parametrize("store_n,buf_n,offset", GEOMETRIES)
-def test_full_split_matches_jax(store_n, buf_n, offset, compaction,
-                                monkeypatch):
-    """_consolidate_full_split; shift applies at power-of-two totals only."""
+#: the JAX package's consolidation routes: (function, MC_SORT_COMPACTION)
+JAX_ROUTES = {"full_split_sort2": (js._consolidate_full_split, "sort2"),
+              "full_split_shift": (js._consolidate_full_split, "shift"),
+              "merge_split": (js._consolidate_merge_split, "sort2")}
+
+
+@pytest.mark.parametrize("route", list(JAX_ROUTES))
+@pytest.mark.parametrize("case", GEOMETRIES + EDGE_CASES)
+def test_merge_into_store_on_cpu_matches_every_jax_route(case, route,
+                                                         monkeypatch):
+    """The port's one consolidation on CPU tensors, given the compact
+    store, against each JAX route on the store padded to store_cap, cut
+    to its n_distinct (the shift compaction applies at power-of-two
+    totals only)."""
+    store, cnts, buf, off = _case(case)
+    fn, compaction = JAX_ROUTES[route]
     monkeypatch.setenv("MC_SORT_COMPACTION", compaction)
-    store, cnts, buf, off = _geometry(store_n + buf_n, store_n, buf_n, offset)
-    _same(js._consolidate_full_split(jnp.asarray(store), jnp.asarray(cnts),
-                                     jnp.asarray(buf), jnp.int32(off)),
-          ts._consolidate_full_split(torch.from_numpy(store),
-                                     torch.from_numpy(cnts),
-                                     torch.from_numpy(buf), off))
-
-
-@pytest.mark.parametrize("store_n,buf_n,offset", GEOMETRIES)
-def test_merge_split_matches_jax(store_n, buf_n, offset):
-    """_consolidate_merge_split, the total padded to a power of two."""
-    store, cnts, buf, off = _geometry(store_n + buf_n, store_n, buf_n, offset)
-    got = ts._consolidate_merge_split(torch.from_numpy(store),
-                                      torch.from_numpy(cnts),
-                                      torch.from_numpy(buf), off)
-    _same(js._consolidate_merge_split(jnp.asarray(store), jnp.asarray(cnts),
-                                      jnp.asarray(buf), jnp.int32(off)), got)
-    assert got[0].numel() == 1 << (store_n + buf_n - 1).bit_length()
-
-
-@pytest.mark.parametrize("store_n,buf_n,offset", GEOMETRIES)
-def test_merge_into_store_on_cpu_is_the_merge_split(store_n, buf_n, offset):
-    """The merge route's wrapper on CPU tensors, given the compact store:
-    _consolidate_merge_split on the store padded to store_cap, cut to its
-    n_distinct, and the JAX package's merge-split cut so."""
-    store, cnts, buf, off = _geometry(store_n + buf_n, store_n, buf_n, offset)
     live = int(np.count_nonzero(store != SENTINEL))
     got = merge_into_store(torch.from_numpy(store[:live]),
                            torch.from_numpy(cnts[:live]),
-                           torch.from_numpy(buf), off, store_n)
-    keys, c, nd = ts._consolidate_merge_split(
-        torch.from_numpy(store), torch.from_numpy(cnts),
-        torch.from_numpy(buf), off)
-    nd = int(nd)
-    _same((keys[:nd], c[:nd]), got)
-    jk, jc, jnd = js._consolidate_merge_split(
-        jnp.asarray(store), jnp.asarray(cnts), jnp.asarray(buf),
-        jnp.int32(off))
+                           torch.from_numpy(buf), off, store.size)
+    jk, jc, jnd = fn(jnp.asarray(store), jnp.asarray(cnts),
+                     jnp.asarray(buf), jnp.int32(off))
     jnd = int(jnd)
-    assert jnd == nd == got[0].numel() > 0
+    assert jnd == got[0].numel() > 0
     _same((np.asarray(jk)[:jnd], np.asarray(jc)[:jnd]), got)
 
 
@@ -145,9 +157,7 @@ def test_stream_counter_off_cuda_loads_no_kernel(device, monkeypatch):
     def refuse():
         raise AssertionError("the kernel library was loaded")
     monkeypatch.setattr(consolidate_cuda, "_library", refuse)
-    for mode in ("auto", "sort2", "merge"):
-        ts.StreamCounter(torch.device(device), buffer_cap=64, store_cap=64,
-                         mode=mode)
+    ts.StreamCounter(torch.device(device), buffer_cap=64, store_cap=64)
 
 
 def test_consolidate_ctypes_signatures_match_the_source():
@@ -166,18 +176,6 @@ def test_consolidate_ctypes_signatures_match_the_source():
         kinds = [re.sub(r"\s*\w+$", "", p.strip())
                  for p in params.group(1).split(",") if p.strip()]
         assert [width[kind] for kind in kinds] == argtypes, name
-
-
-@pytest.mark.parametrize("n", [256, 1024])
-def test_shift_compact_matches_jax(n):
-    """The shift compaction of a sorted multiset, run-lasts marked."""
-    rng = np.random.default_rng(n)
-    keys = np.sort(rng.integers(0, n // 2, n)).astype(np.int64)
-    keys[-n // 8:] = SENTINEL
-    w = rng.integers(0, 30, n).astype(np.int64)
-    w[-n // 8:] = 0
-    _same(js._shift_compact(jnp.asarray(keys), jnp.asarray(w)),
-          ts._shift_compact(torch.from_numpy(keys), torch.from_numpy(w)))
 
 
 def _batches(seed: int, n: int, genome_len: int, shape=(16, 64)):
@@ -224,41 +222,15 @@ def _run_both(jsc, sc, batches, k):
 @pytest.mark.parametrize("compaction", ["sort2", "shift"])
 @pytest.mark.parametrize("mode", ["auto", "sort2", "merge"])
 def test_stream_counter_modes_match_jax(mode, compaction, monkeypatch):
-    """Each mode against the same JAX mode after every batch, with store
-    growth (the store doubles at least twice) and its odd transitional
-    total."""
+    """The port's counter against the JAX counter in each of its modes
+    after every batch, with store growth (the store doubles at least twice)
+    and its odd transitional total."""
     monkeypatch.setenv("MC_SORT_COMPACTION", compaction)
     caps = dict(buffer_cap=3072, store_cap=1024)
     jsc = js.StreamCounter(mode=mode, **caps)
-    sc = ts.StreamCounter(CPU, mode=mode, **caps)
+    sc = ts.StreamCounter(CPU, **caps)
     _run_both(jsc, sc, _batches(3, 14, 8000), 21)
     assert sc.store_cap >= 4 * caps["store_cap"]  # grew twice or more
-
-
-def test_auto_takes_merge_above_the_ceiling():
-    """'auto' consolidates by merge above SORT2_LANE_CEILING (lowered on
-    the port's instance: the JAX side runs mode='merge'), by sort2 at or
-    below it."""
-    caps = dict(buffer_cap=3072, store_cap=1024)
-    sc = ts.StreamCounter(CPU, **caps)
-    assert sc.mode == "auto" and not sc.uses_merge()
-    sc.SORT2_LANE_CEILING = 2048
-    assert sc.uses_merge()
-    _run_both(js.StreamCounter(mode="merge", **caps), sc,
-              _batches(4, 8, 8000), 21)
-
-
-def test_ceiling_is_jax_ceiling():
-    assert ts.StreamCounter.SORT2_LANE_CEILING == \
-        js.StreamCounter.SORT2_LANE_CEILING == 1 << 24
-
-
-@pytest.mark.parametrize("mode", ["bitonic", "", "AUTO"])
-def test_bad_mode_raises_like_jax(mode):
-    with pytest.raises(ValueError, match="mode must be"):
-        js.StreamCounter(buffer_cap=64, store_cap=64, mode=mode)
-    with pytest.raises(ValueError, match="mode must be"):
-        ts.StreamCounter(CPU, buffer_cap=64, store_cap=64, mode=mode)
 
 
 @pytest.fixture(scope="module")
@@ -284,8 +256,9 @@ def reads_fastq(tmp_path_factory):
 @pytest.mark.parametrize("k,hasher", [(21, None), (55, "poly")])
 def test_count_kmers_shift_compaction_matches_jax(reads_fastq, k, hasher,
                                                   monkeypatch):
-    """count_kmers_device under MC_SORT_COMPACTION=shift in both packages
-    (the default geometry keeps buffer + store a power of two)."""
+    """count_kmers_device against the JAX package's under
+    MC_SORT_COMPACTION=shift, which the port ignores (the default geometry
+    keeps buffer + store a power of two)."""
     monkeypatch.setenv("MC_SORT_COMPACTION", "shift")
     geom = dict(batch=64, max_len=96, table_log2=10)
     got = count_kmers_device([reads_fastq], k, hasher, device=CPU, **geom)
